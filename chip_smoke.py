@@ -2,28 +2,40 @@
 card: the quickest proof that the port starts, builds its kernels and answers
 its main paths on the GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase
+    python3 chip_smoke.py --kernels   # phases 1 and 2, and each kernel alone
+                                      # at q1's shapes; no result line
 
 Phases (any failure exits non-zero, and no result line is printed):
 1. device: the card's name, power limit and the torch/CUDA versions; build
    every hand-written kernel from the sources in the checkout, one nvcc per
-   source, all started together;
+   source, all started together; print what ptxas reports for each
+   seg_sum instantiation and fail on any spill;
 2. kernels against their plain PyTorch versions on the card, at the shapes of
-   the main paths and at the edges: seg_sum_f32 (exact on 0/1 flags, and a
-   float32 tolerance on random values) and murmur3_long (bit for bit, scalar
-   and per-row seeds, n from 0 to 6,000,000, int64 edge values);
+   the main paths and at the edges: seg_sum_f32 and seg_sum_f64 (out_size
+   1, 6, 8, 9 and 256 on both sides of the small-table limit; n = 0, 1, 3,
+   2^21 + 3 and 2^23; dead rows at the end or scattered, negative and
+   too-large ranks; a misaligned input; exact on 0/1 flags and on
+   integer-valued doubles, float32 within RTOL_F32 of a float64 sum, float64
+   within RTOL_F64_KERNEL of the plain version; a rerun gives the same bits)
+   and murmur3_long (bit for bit, scalar and per-row seeds, n from 0 to
+   6,000,000, int64 edge values);
 3. the main paths, each through session() -> create_dataframe -> ... ->
    collect() on cuda and held against a numpy oracle, each with every launch
    count set to 0 just before it and read just after:
    a. q1 (the bench.py query: filter, two double projections, group by two
       int64 keys with 4 sums, 3 averages and a count, order by) over
-      8,000,000 rows in one partition; seg_sum_f32 must launch;
+      8,000,000 rows in one partition; seg_sum_f32 (flags and counts) and
+      seg_sum_f64 (the 7 double sums) must launch;
    b. the same q1 at 4 partitions with the default configuration (AQE
-      coalesces both exchanges; seg_sum_f32 runs in each map's partial) and
-      with spark.sql.adaptive.enabled=false (a two-key hash exchange with
-      chained per-row seeds, then a range exchange); murmur3_long must
-      launch in the second, and every one of its calls there is then
-      held bit for bit against the plain version at its own input;
+      coalesces both exchanges; both seg_sum builds run in each map's
+      partial) and with spark.sql.adaptive.enabled=false (a two-key hash
+      exchange with chained per-row seeds, then a range exchange);
+      murmur3_long must launch in the second, and every one of its calls
+      there is then held bit for bit against the plain version at its own
+      input; every seg_sum call of each q1 run is replayed against the
+      plain version the same way (exact on flags, RTOL_F64_KERNEL on
+      double sums);
    c. TPC-H Q18's inner aggregate at scale factor 1 (1,500,000 orders, about
       6.0M lineitem rows, 4 partitions): group by l_orderkey, sum(l_quantity)
       > 300, order by; keys and sums exact; its hash exchange must not
@@ -35,10 +47,12 @@ Phases (any failure exits non-zero, and no result line is printed):
       partition pmod(murmur3(key, 42), 8) of the plain version; and
       withColumn("h", hash("l_orderkey")) equal to the plain version;
 4. times: warm q1 at one and at four partitions and warm Q18-inner (median
-   of 5 each), a profile of one warm q1 and one warm Q18-inner, and for each
-   kernel on the inputs its main path gave it: the kernel, its plain
-   version, one library call computing the same function where there is
-   one, and the bound that the card's bandwidth sets.
+   of 5 each), a profile of one warm q1 (which must show no float64
+   index_add_ kernel) and one warm Q18-inner, and for each kernel on the
+   inputs its main path gave it: the kernel, its plain version, one library
+   call computing the same function where there is one (for seg_sum the
+   better of index_add_ on the [s, n] and on the [n, s] layout), and the
+   bound that the card's bandwidth sets.
 
 The last two lines before the final one are the ``kernels`` JSON line and the
 card as ``nvidia-smi`` names it; the final line is
@@ -70,8 +84,16 @@ HBM_BYTES_PER_S = 3.35e12
 #: order, at most ~n*eps ~ 1e-9 relative at 2^23 terms
 RTOL_F64 = 1e-9
 #: rtol of float32 sums (kernel and plain) against a float64 sum of the same
-#: float32 inputs, at n = 65,536
+#: float32 inputs, at n = 65,536; the kernel's blocked sums hold it at every
+#: shape of phase 2
 RTOL_F32 = 1e-5
+#: rtol of the float64 seg-sum kernel against its plain version on positive
+#: values: both sum in float64, in other orders (the plain one with atomics)
+RTOL_F64_KERNEL = 1e-12
+#: the seg-sum kernel's small-table limit (kSmallGroups in csrc/seg_sum.cu)
+SEG_SUM_SMALL_GROUPS = 8
+#: the seg-sum builds: kernel name -> torch dtype name
+SEG_SUM_BUILDS = {"seg_sum_f32": "float32", "seg_sum_f64": "float64"}
 
 
 def log(*parts):
@@ -142,12 +164,28 @@ def q1_oracle(data):
     }
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` over ``iters`` launches (CUDA events)."""
+def cuda_ms(fn, iters: int = 20, warmup: int = 3,
+            flush_l2: bool = False) -> float:
+    """Mean device time of ``fn()`` over ``iters`` launches (CUDA events).
+    With ``flush_l2`` each launch is timed alone after 256 MB are written,
+    which evicts the 50 MB L2 (and keeps the card busy while the host
+    enqueues ``fn``), so inputs that fit in L2 come from device memory as
+    the main path finds them."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if flush_l2:
+        scrap = torch.empty(1 << 26, dtype=torch.int32, device="cuda")
+        ends = [(torch.cuda.Event(enable_timing=True),
+                 torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+        for start, end in ends:
+            scrap.zero_()
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in ends) / iters
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -172,53 +210,163 @@ def nvidia_smi_card() -> str:
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def check_seg_sum(K, torch) -> float:
-    """seg_sum_f32 kernel vs plain on the card; returns the max abs error
-    seen where both must agree bit for bit (0.0)."""
+def spill_report(text: str):
+    """(function, registers, spill store bytes, spill load bytes) for every
+    kernel in a ptxas -v report."""
+    import re
+    found, fn = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = [m.group(1), None, None, None]
+            found.append(fn)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            fn[2], fn[3] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            fn[1] = int(m.group(1))
+    return [tuple(f) for f in found]
+
+
+def seg_sum_inputs(torch, g, dtype, exact: bool, s: int, n: int,
+                   out_size: int, dead_at_end: bool, misaligned=False):
+    """[s, n] values and int32[n] ranks on the card.  Ranks: with
+    ``dead_at_end`` 46% live rows first and the dead rest (negative or past
+    the table) after them, as FilterExec leaves q1's batch; else drawn from
+    [-2, out_size + 3), dead rows scattered.  Values: 0/1 flags (float32) or
+    integers in [-1000, 1000] (float64) when ``exact``, else uniform in
+    [0, 1).  ``misaligned`` puts both at an offset of one element, so the
+    kernel cannot take 16-byte loads."""
     dev = "cuda"
-    g = torch.Generator(device=dev)
-    g.manual_seed(SEED)
-    n_q1 = 1 << 23
-
-    def flags_case(s, n, out_size, dead_lo=-2, dead_hi=3):
-        rank = torch.randint(dead_lo, out_size + dead_hi, (n,), generator=g,
-                             device=dev, dtype=torch.int32)
+    if dead_at_end:
+        n_live = n * 46 // 100
+        dead = torch.randint(-3, 3, (n - n_live,), generator=g, device=dev,
+                             dtype=torch.int32)
+        rank = torch.cat([
+            torch.randint(0, out_size, (n_live,), generator=g, device=dev,
+                          dtype=torch.int32),
+            torch.where(dead < 0, dead, dead + out_size)])
+    else:
+        rank = torch.randint(-2, out_size + 3, (n,), generator=g, device=dev,
+                             dtype=torch.int32)
+    if not exact:
+        vals = torch.rand(s, n, generator=g, device=dev, dtype=dtype)
+    elif dtype == torch.float32:
         vals = (torch.rand(s, n, generator=g, device=dev) < 0.5).float()
-        return vals, rank, out_size
+    else:
+        vals = torch.randint(-1000, 1001, (s, n), generator=g, device=dev
+                             ).to(dtype)
+    if misaligned:
+        vbuf = torch.empty(s * n + 1, dtype=dtype, device=dev)
+        vbuf[1:].copy_(vals.reshape(-1))
+        rbuf = torch.empty(n + 1, dtype=torch.int32, device=dev)
+        rbuf[1:].copy_(rank)
+        vals, rank = vbuf[1:].view(s, n), rbuf[1:]
+    return vals, rank
 
-    cases = [("q1", flags_case(s, n_q1, 6)) for s in (4, 8, 11, 15)]
-    cases += [("ragged n", flags_case(3, 100_003, 6)),
-              ("out_size 1", flags_case(5, 77_777, 1)),
-              ("out_size 256", flags_case(15, 1 << 20, 256)),
-              ("all dead", flags_case(3, 50_000, 4, dead_lo=4, dead_hi=9))]
-    worst = 0.0
-    for label, (vals, rank, out_size) in cases:
-        a = K.seg_sum_f32(vals, rank, out_size)
-        b = K.seg_sum_f32_plain(vals, rank, out_size)
-        torch.cuda.synchronize()
-        err = float((a - b).abs().max())
-        worst = max(worst, err)
-        log(f"  seg_sum_f32 {label}: s={vals.shape[0]} n={vals.shape[1]} "
-            f"out_size={out_size} max_abs_err={err}")
+
+def seg_sum_against_plain(K, torch, name: str, vals, rank, out_size: int,
+                          exact: bool):
+    """One seg_sum call on the card against its plain version: bit for bit
+    when ``exact``, else float64 within RTOL_F64_KERNEL of the plain version
+    and float32 within RTOL_F32 of a float64 sum; a second launch must give
+    the same bits.  Returns (max abs error vs plain, max relative error vs
+    the reference); raises on a mismatch."""
+    a = getattr(K, name)(vals, rank, out_size)
+    again = getattr(K, name)(vals, rank, out_size)
+    b = getattr(K, name + "_plain")(vals, rank, out_size)
+    torch.cuda.synchronize()
+    label = (f"{name} s={vals.shape[0]} n={vals.shape[1]} "
+             f"out_size={out_size}")
+    if not torch.equal(a, again):
+        raise AssertionError(f"{label}: a rerun gives other bits")
+    err = float((a.double() - b.double()).abs().max())
+    if exact:
         if not torch.equal(a, b):
-            raise AssertionError(f"seg_sum_f32 {label}: kernel != plain")
-        if not torch.equal(a, K.seg_sum_f32(vals, rank, out_size)):
-            raise AssertionError(f"seg_sum_f32 {label}: rerun differs")
-    # random float32: both versions within RTOL_F32 of a float64 sum
+            raise AssertionError(f"{label}: kernel != plain on exact input "
+                                 f"(max abs err {err})")
+        return err, 0.0
+    if vals.dtype == torch.float64:
+        ref, rtol = b, RTOL_F64_KERNEL
+    else:
+        ref, rtol = K.seg_sum_f64_plain(vals.double(), rank, out_size), \
+            RTOL_F32
+    diff = (a.double() - ref).abs()
+    rel = float(torch.where(ref != 0, diff / ref.abs(), diff).max())
+    if rel > rtol:
+        raise AssertionError(f"{label}: max relative error {rel} > {rtol}")
+    return err, rel
+
+
+def check_seg_sum(K, torch) -> None:
+    """Both seg_sum builds against their plain versions on the card, at
+    every shape of the matrix in the module docstring."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    small = SEG_SUM_SMALL_GROUPS
+    for name, dtype_name in SEG_SUM_BUILDS.items():
+        dtype = getattr(torch, dtype_name)
+        s_main = 11 if dtype == torch.float32 else 7   # two slot chunks
+        cases = [(s_main, n, out_size, dead_at_end, False)
+                 for out_size in (1, 6, small, small + 1, 256)
+                 for n in (0, 1, 3, (1 << 21) + 3, 1 << 23)
+                 for dead_at_end in (True, False)]
+        cases += [(1, (1 << 21) + 3, 6, False, False),       # one slot
+                  (s_main, 1 << 21, 6, False, True),         # misaligned
+                  (s_main, 1 << 21, small + 1, True, True)]
+        if dtype == torch.float32:   # q1's flag and count calls
+            cases += [(15, 1 << 23, 6, True, False), (8, 1 << 23, 6, True, False)]
+        for exact in (True, False):
+            worst, worst_rel = 0.0, 0.0
+            for s, n, out_size, dead_at_end, misaligned in cases:
+                vals, rank = seg_sum_inputs(torch, g, dtype, exact, s, n,
+                                            out_size, dead_at_end, misaligned)
+                err, rel = seg_sum_against_plain(K, torch, name, vals, rank,
+                                                 out_size, exact)
+                worst, worst_rel = max(worst, err), max(worst_rel, rel)
+                del vals, rank
+            kind = ("0/1 flags" if dtype == torch.float32 else
+                    "integer-valued doubles") if exact else "random values"
+            log(f"  {name} on {kind}: {len(cases)} shapes, "
+                + ("bit for bit, " if exact else
+                   f"max_rel_err={worst_rel} (limit "
+                   f"{RTOL_F64_KERNEL if dtype == torch.float64 else RTOL_F32}), ")
+                + f"max_abs_err vs plain={worst}, reruns bit for bit")
+    # random float32 at a small n: the plain version within RTOL_F32 too
     n = 65_536
-    rank = torch.randint(0, 6, (n,), generator=g, device=dev,
+    rank = torch.randint(0, 6, (n,), generator=g, device="cuda",
                          dtype=torch.int32)
-    vals = torch.rand(4, n, generator=g, device=dev)
-    ref = torch.zeros(4, 6, dtype=torch.float64, device=dev).index_add_(
-        1, rank.long(), vals.double())
-    for name, fn in (("kernel", K.seg_sum_f32),
-                     ("plain", K.seg_sum_f32_plain)):
+    vals = torch.rand(4, n, generator=g, device="cuda")
+    ref = K.seg_sum_f64_plain(vals.double(), rank, 6)
+    for label, fn in (("kernel", K.seg_sum_f32),
+                      ("plain", K.seg_sum_f32_plain)):
         rel = float(((fn(vals, rank, 6).double() - ref).abs()
                      / ref.abs()).max())
-        log(f"  seg_sum_f32 random f32 n={n}: {name} max_rel_err={rel}")
+        log(f"  seg_sum_f32 random f32 n={n}: {label} max_rel_err={rel}")
         if rel > RTOL_F32:
-            raise AssertionError(f"seg_sum_f32 random f32: {name} off by "
+            raise AssertionError(f"seg_sum_f32 random f32: {label} off by "
                                  f"{rel}")
+
+
+def check_seg_sum_calls(K, torch, name: str, label: str, calls) -> float:
+    """A seg_sum build against its plain version on every call a main path
+    made, at its own inputs: bit for bit where the values are integers (the
+    0/1 flags and counts), else as seg_sum_against_plain; returns the max
+    abs error.  These launches come after the path's counts were read."""
+    worst, worst_rel = 0.0, 0.0
+    for vals, rank, out_size in calls:
+        exact = bool((vals == vals.round()).all())
+        err, rel = seg_sum_against_plain(K, torch, name, vals, rank,
+                                         out_size, exact)
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+    shapes = sorted({(int(v.shape[0]), int(v.shape[1]), int(o))
+                     for v, _, o in calls})
+    log(f"  {name} == plain on all {len(calls)} calls of {label} "
+        f"((s, n, out_size) {shapes}; max_abs_err={worst}, "
+        f"max_rel_err={worst_rel}; reruns bit for bit)")
     return worst
 
 
@@ -288,6 +436,15 @@ def recording(K, name: str, calls: list):
         yield
     finally:
         setattr(K, name, launch)
+
+
+@contextmanager
+def recording_seg_sums(K, calls: dict):
+    """Record every call of both seg_sum builds: ``calls[name]`` lists the
+    arguments of each call of ``K.<name>``."""
+    with recording(K, "seg_sum_f32", calls.setdefault("seg_sum_f32", [])), \
+            recording(K, "seg_sum_f64", calls.setdefault("seg_sum_f64", [])):
+        yield
 
 
 def drive(label: str, fn, K, torch, must_launch=()):
@@ -380,9 +537,10 @@ def check_result(table, want, label: str = "q1") -> None:
             np.testing.assert_array_equal(got, w, err_msg=f"{label} {name}")
 
 
-def profile_query(label: str, query, torch, top: int = 12) -> None:
+def profile_query(label: str, query, torch, top: int = 12):
     """Where one warm collect spends device time: torch.profiler over it,
-    device time by op, and the device's busy share of the wall time."""
+    device time by op, and the device's busy share of the wall time.
+    Returns the float64 index_add_ kernels it saw, as (key, ms, count)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -410,31 +568,84 @@ def profile_query(label: str, query, torch, top: int = 12) -> None:
         if "murmur3" in e.key or "seg_sum" in e.key:
             log(f"    hand kernel: {dev_us(e) / 1e3:.5f} ms  x{e.count} "
                 f"{e.key[:100]}")
+    # index_add_ runs as indexFuncSmallIndex / indexFuncLargeIndex<T, ...>
+    f64_adds = [(e.key, dev_us(e) / 1e3, e.count) for e in kernels
+                if "indexFunc" in e.key and "double" in e.key]
+    for key, ms, count in f64_adds:
+        log(f"    float64 index_add_: {ms:.3f} ms  x{count} {key[:100]}")
+    log(f"    float64 index_add_ kernels: {len(f64_adds)}")
+    return f64_adds
 
 
-def seg_sum_times(K, torch, calls):
-    """Per-run times of the seg_sum_f32 launches a main path made."""
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+def seg_sum_times(K, torch, name: str, calls):
+    """Per-run times of the calls of one seg_sum build that a main path
+    made, each launch after an L2 flush.  ``library_ms`` is the better of two
+    single PyTorch calls, each on inputs prepared outside the timed call:
+    index_add_ along dim 1 of the kernel's [s, n] layout, and along dim 0 of
+    the [n, s] layout that seg_sum2 uses."""
+    kernel = getattr(K, name)
+    plain = getattr(K, name + "_plain")
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                  index_add_sn_ms=0.0, index_add_ns_ms=0.0)
     for values, rank, out_size in calls:
         s, n = values.shape
         live = (rank >= 0) & (rank < out_size)
         n_live = int(live.sum())
         idx = torch.where(live, rank, out_size).long()
-        table_out = torch.zeros(s, out_size + 1, device=values.device)
+        table_sn = torch.zeros(s, out_size + 1, dtype=values.dtype,
+                               device=values.device)
+        values_ns = values.T.contiguous()
+        table_ns = torch.zeros(out_size + 1, s, dtype=values.dtype,
+                               device=values.device)
+        elem = values.element_size()
         t = dict(
-            ms=cuda_ms(lambda: K.seg_sum_f32(values, rank, out_size)),
-            plain_ms=cuda_ms(
-                lambda: K.seg_sum_f32_plain(values, rank, out_size)),
-            library_ms=cuda_ms(lambda: table_out.index_add_(1, idx, values)),
+            ms=cuda_ms(lambda: kernel(values, rank, out_size), flush_l2=True),
+            plain_ms=cuda_ms(lambda: plain(values, rank, out_size), iters=5,
+                             warmup=1, flush_l2=True),
+            index_add_sn_ms=cuda_ms(
+                lambda: table_sn.index_add_(1, idx, values), iters=5,
+                warmup=1, flush_l2=True),
+            index_add_ns_ms=cuda_ms(
+                lambda: table_ns.index_add_(0, idx, values_ns),
+                flush_l2=True),
             # every rank read once, the values of live rows only (a dead
             # row's values need not be read), the table written once
-            bound_ms=(4 * n + 4 * s * n_live + 4 * s * out_size)
+            bound_ms=(4 * n + elem * s * n_live + elem * s * out_size)
             / HBM_BYTES_PER_S * 1e3)
-        log(f"  seg_sum_f32 s={s} n={n} live={n_live} out_size={out_size}: " +
+        t["library_ms"] = min(t["index_add_sn_ms"], t["index_add_ns_ms"])
+        log(f"  {name} s={s} n={n} live={n_live} out_size={out_size}: " +
             ", ".join(f"{k}={v:.5f}" for k, v in t.items()))
         for k in totals:
             totals[k] += t[k]
+        del values_ns, table_sn, table_ns, idx
     return totals
+
+
+def seg_sum_alone(K, torch) -> None:
+    """Each seg_sum build alone at q1's shapes (n = 2^23, out_size 6, 46%
+    live rows first): f32 at s = 15 and 8 (flags and counts), f64 at s = 7
+    (the double sums), each launch after an L2 flush, against the bound and
+    index_add_ on [n, s]."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 2)
+    for name, s in (("seg_sum_f32", 15), ("seg_sum_f32", 8),
+                    ("seg_sum_f64", 7)):
+        dtype = getattr(torch, SEG_SUM_BUILDS[name])
+        vals, rank = seg_sum_inputs(torch, g, dtype, False, s, 1 << 23, 6,
+                                    True)
+        live = (rank >= 0) & (rank < 6)
+        idx = torch.where(live, rank, 6).long()
+        values_ns = vals.T.contiguous()
+        table_ns = torch.zeros(7, s, dtype=dtype, device="cuda")
+        bound = (4 * vals.shape[1] + vals.element_size() * s
+                 * int(live.sum()) + vals.element_size() * s * 6) \
+            / HBM_BYTES_PER_S * 1e3
+        ms = cuda_ms(lambda: getattr(K, name)(vals, rank, 6), flush_l2=True)
+        lib = cuda_ms(lambda: table_ns.index_add_(0, idx, values_ns),
+                      flush_l2=True)
+        log(f"  {name} alone s={s} n=2^23 out_size=6: kernel {ms:.5f} ms, "
+            f"bound {bound:.5f} ms ({bound / ms:.1%}), index_add_ [n, s] "
+            f"{lib:.5f} ms")
 
 
 def murmur3_bytes(values, seed) -> int:
@@ -489,11 +700,31 @@ def run(argv) -> int:
     for lib, secs in built:
         log(f"built {lib.name} in {secs:.2f} s")
     log(f"all kernels built in {time.perf_counter() - t0:.2f} s")
+    log("ptxas -v for csrc/seg_sum.cu:")
+    for line in K.ptxas_report("seg_sum").splitlines():
+        if line.strip():
+            log(f"  {line.strip()}")
+    for name in KERNEL_SOURCES:
+        report = spill_report(K.ptxas_report(name))
+        if not report:
+            raise AssertionError(f"no ptxas report for {name}")
+        for fn, regs, stores, loads in report:
+            if stores or loads:
+                raise AssertionError(f"{name}: {fn} spills ({stores} bytes "
+                                     f"stored, {loads} loaded)")
+        log(f"  {name}: {len(report)} kernels, registers "
+            f"{sorted(r for _, r, _, _ in report)}, 0 spill bytes in each")
 
     # -- phase 2: kernels vs plain --------------------------------------------
     log("phase 2: kernels against their plain versions")
-    err = {"seg_sum_f32": check_seg_sum(K, torch),
+    check_seg_sum(K, torch)
+    err = {"seg_sum_f32": 0.0, "seg_sum_f64": 0.0,
            "murmur3_long": check_murmur3(K, torch)}
+    if "--kernels" in argv:
+        log("phase 4 (kernels alone)")
+        seg_sum_alone(K, torch)
+        log("--kernels: phases 1 and 2 passed; the main paths were not run")
+        return 0
 
     # -- phase 3: the main paths ----------------------------------------------
     sess = srt.session()
@@ -503,10 +734,14 @@ def run(argv) -> int:
     data = make_data(ROWS)
     want = q1_oracle(data)
     query = q1(sess.create_dataframe(data), F)
-    seg_calls: list = []
-    with recording(K, "seg_sum_f32", seg_calls):
+    seg_calls: dict = {}
+    with recording_seg_sums(K, seg_calls):
         table, q1_launches, _ = drive(
-            "q1, one partition", query.collect, K, torch, ["seg_sum_f32"])
+            "q1, one partition", query.collect, K, torch,
+            list(SEG_SUM_BUILDS))
+    for name in SEG_SUM_BUILDS:
+        err[name] = max(err[name], check_seg_sum_calls(
+            K, torch, name, "q1, one partition", seg_calls[name]))
     check_result(table, want)
     for row in table.to_pylist():
         log(f"  {row}")
@@ -516,15 +751,22 @@ def run(argv) -> int:
     log("phase 3b: q1 at 4 partitions, AQE on (default) and off")
     q1_parts = {}
     for label, conf, need in (
-            ("aqe on", None, ["seg_sum_f32"]),
+            ("aqe on", None, list(SEG_SUM_BUILDS)),
             ("aqe off", {"spark.sql.adaptive.enabled": False},
-             ["seg_sum_f32", "murmur3_long"])):
+             list(SEG_SUM_BUILDS) + ["murmur3_long"])):
         s4 = srt.session(conf=conf)
         q4 = q1(s4.create_dataframe(data, num_partitions=4), F)
         q1_mm_calls: list = []
-        with recording(K, "murmur3_long", q1_mm_calls):
+        q4_seg_calls: dict = {}
+        with recording(K, "murmur3_long", q1_mm_calls), \
+                recording_seg_sums(K, q4_seg_calls):
             t4, _, _ = drive(f"q1, 4 partitions, {label}", q4.collect, K,
                              torch, need)
+        for name in SEG_SUM_BUILDS:
+            err[name] = max(err[name], check_seg_sum_calls(
+                K, torch, name, f"q1 4 partitions {label}",
+                q4_seg_calls[name]))
+        del q4_seg_calls
         if q1_mm_calls:
             err["murmur3_long"] = max(
                 err["murmur3_long"],
@@ -623,8 +865,14 @@ def run(argv) -> int:
         "lineitem rows/s")
     log(f"  bounds use the H100 SXM data-sheet bandwidth, "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
-    seg = seg_sum_times(K, torch, seg_calls)
-    log("  (seg_sum_f32 times are per q1 run: the sum over its launches)")
+    seg = {name: seg_sum_times(K, torch, name, seg_calls[name])
+           for name in SEG_SUM_BUILDS}
+    for name, t in seg.items():
+        log(f"  {name} per q1 run ({len(seg_calls[name])} launches): " +
+            ", ".join(f"{k}={v:.5f}" for k, v in t.items()))
+    log("  (seg_sum times are per q1 run: the sum over its launches, each "
+        "after an L2 flush; library_ms is the better of index_add_ on "
+        "[s, n] and on [n, s])")
     mm = murmur3_times(K, torch, mm_calls)
     log(f"  (murmur3_long times are per Q18-inner run: the sum over its "
         f"{len(mm_calls)} launches, {mm['bytes']} bytes)")
@@ -642,19 +890,26 @@ def run(argv) -> int:
             f"{cuda_ms(lambda: K.murmur3_long(v, seed)):.5f} ms, plain "
             f"{cuda_ms(lambda: K.murmur3_long_plain(v, seed)):.5f} ms, "
             f"bound {murmur3_bytes(v, seed) / HBM_BYTES_PER_S * 1e3:.5f} ms")
-    profile_query("q1", query, torch)
+    f64_adds = profile_query("q1", query, torch)
+    if f64_adds:
+        raise AssertionError("q1's profile shows float64 index_add_ kernels: "
+                             f"{[k[:80] for k, _, _ in f64_adds]}")
     profile_query("q1, 4 partitions, aqe off", q1_parts["aqe off"], torch)
     profile_query("Q18-inner", q18, torch)
+    replaces = {
+        "seg_sum_f32": "spark_rapids_tpu/ops/pallas_kernels.py:126",
+        # no Pallas kernel: the XLA scatter seg_sum2 of the double sums
+        "seg_sum_f64": "spark_rapids_tpu/ops/segmented.py:68"}
     kernels = [{
-        "name": "seg_sum_f32", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "spark_rapids_tpu_torch/csrc/seg_sum.cu",
-        "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:126",
-        "launches": q1_launches["seg_sum_f32"],
-        "max_abs_err": err["seg_sum_f32"],
-        "ms": seg["ms"], "plain_ms": seg["plain_ms"],
-        "bound_ms": seg["bound_ms"], "bound_by": "bytes",
-        "library_ms": seg["library_ms"],
-    }, {
+        "replaces": replaces[name],
+        "launches": q1_launches[name],
+        "max_abs_err": err[name],
+        "ms": seg[name]["ms"], "plain_ms": seg[name]["plain_ms"],
+        "bound_ms": seg[name]["bound_ms"], "bound_by": "bytes",
+        "library_ms": seg[name]["library_ms"],
+    } for name in SEG_SUM_BUILDS] + [{
         "name": "murmur3_long", "route": "cuda",
         "source": "spark_rapids_tpu_torch/csrc/murmur3.cu",
         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:64",

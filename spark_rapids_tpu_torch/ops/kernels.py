@@ -35,10 +35,10 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel name -> launches since the last :func:`reset_launches`
-LAUNCHES = {"seg_sum_f32": 0, "murmur3_long": 0}
+LAUNCHES = {"seg_sum_f32": 0, "seg_sum_f64": 0, "murmur3_long": 0}
 
 #: the largest group table the segmented-sum kernel takes (the aggregate's
 #: small-table limit, ``_MATMUL_MAX_GROUPS`` in the JAX package)
@@ -66,7 +66,8 @@ def _nvcc() -> str:
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` into a shared library (once per source and
-    flags) and return its path."""
+    flags) and return its path.  What ptxas reports for each kernel
+    (registers, stack, spills) is kept beside it: :func:`ptxas_report`."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:16]
@@ -79,8 +80,14 @@ def build(name: str) -> Path:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}")
+    out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def ptxas_report(name: str) -> str:
+    """The ``-Xptxas -v`` output of the build of ``csrc/<name>.cu``."""
+    return build(name).with_suffix(".ptxas.txt").read_text()
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -103,73 +110,90 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         return
     if name != "seg_sum":
         raise ValueError(f"no C interface declared for {name}")
-    lib.seg_sum_f32_scratch.argtypes = [ctypes.c_longlong, ctypes.c_int,
-                                        ctypes.c_int]
-    lib.seg_sum_f32_scratch.restype = ctypes.c_longlong
-    lib.seg_sum_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                ctypes.c_void_p, ctypes.c_void_p,
-                                ctypes.c_int, ctypes.c_longlong,
-                                ctypes.c_int, ctypes.c_void_p]
-    lib.seg_sum_f32.restype = ctypes.c_int
+    for fn in ("seg_sum_f32", "seg_sum_f64"):
+        scratch = getattr(lib, f"{fn}_scratch")
+        scratch.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+        scratch.restype = ctypes.c_longlong
+        launch = getattr(lib, fn)
+        launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                           ctypes.c_int, ctypes.c_void_p]
+        launch.restype = ctypes.c_int
 
 
 # --------------------------------------------------------------------------
-# segmented sum: replaces seg_sum_f32_pallas (pallas_kernels.py:126)
+# segmented sum: replaces seg_sum_f32_pallas (pallas_kernels.py:126); the
+# float64 build takes the double SUM slots the JAX package leaves to seg_sum2
 # --------------------------------------------------------------------------
 
-def seg_sum_f32_plain(values: torch.Tensor, rank: torch.Tensor,
-                      out_size: int) -> torch.Tensor:
-    """float32[s, n] values + int32[n] ranks -> float32[s, out_size] sums;
-    ranks outside [0, out_size) add nothing (they go to a spare column that
-    is cut off: torch scatters raise on out-of-range indices where jnp
+def seg_sum_plain(values: torch.Tensor, rank: torch.Tensor,
+                  out_size: int) -> torch.Tensor:
+    """[s, n] values + int32[n] ranks -> [s, out_size] sums in the values'
+    type; ranks outside [0, out_size) add nothing (they go to a spare column
+    that is cut off: torch scatters raise on out-of-range indices where jnp
     scatters drop them)."""
     s = values.shape[0]
     idx = torch.where((rank >= 0) & (rank < out_size), rank,
                       out_size).to(torch.int64)
-    out = torch.zeros(s, out_size + 1, dtype=torch.float32,
+    out = torch.zeros(s, out_size + 1, dtype=values.dtype,
                       device=values.device)
     out.index_add_(1, idx, values)
     return out[:, :out_size]
+
+
+#: the plain version of each build
+seg_sum_f32_plain = seg_sum_f64_plain = seg_sum_plain
+
+
+def _seg_sum(name: str, dtype: torch.dtype, values: torch.Tensor,
+             rank: torch.Tensor, out_size: int) -> torch.Tensor:
+    out_size = int(out_size)
+    if values.dim() != 2 or rank.dim() != 1 or \
+            values.shape[1] != rank.shape[0]:
+        raise ValueError(f"{name}: values [s, n] and rank [n] expected, "
+                         f"got {tuple(values.shape)} and {tuple(rank.shape)}")
+    if values.dtype != dtype or rank.dtype != torch.int32:
+        raise TypeError(f"{name}: {dtype} values and int32 rank expected, "
+                        f"got {values.dtype} and {rank.dtype}")
+    if not 1 <= out_size <= SEG_SUM_MAX_GROUPS:
+        raise ValueError(f"{name}: out_size {out_size} outside "
+                         f"[1, {SEG_SUM_MAX_GROUPS}]")
+    if values.device != rank.device:
+        raise ValueError(f"{name}: values and rank on different devices")
+    if values.device.type == "cpu":
+        return seg_sum_plain(values, rank, out_size)
+    if values.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {values.device}")
+    if not (values.is_contiguous() and rank.is_contiguous()):
+        raise ValueError(f"{name}: contiguous tensors expected")
+    s, n = values.shape
+    lib = _lib("seg_sum")
+    with torch.cuda.device(values.device):
+        scratch = torch.empty(getattr(lib, f"{name}_scratch")(n, s, out_size),
+                              dtype=dtype, device=values.device)
+        out = torch.empty(s, out_size, dtype=dtype, device=values.device)
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        err = getattr(lib, name)(values.data_ptr(), rank.data_ptr(),
+                                 scratch.data_ptr(), out.data_ptr(), s, n,
+                                 out_size, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+    return out
 
 
 def seg_sum_f32(values: torch.Tensor, rank: torch.Tensor,
                 out_size: int) -> torch.Tensor:
     """Per-group sums of ``s`` float32 value rows by group rank (see
     ``csrc/seg_sum.cu``).  CPU tensors take :func:`seg_sum_f32_plain`."""
-    out_size = int(out_size)
-    if values.dim() != 2 or rank.dim() != 1 or \
-            values.shape[1] != rank.shape[0]:
-        raise ValueError(f"seg_sum_f32: values [s, n] and rank [n] expected, "
-                         f"got {tuple(values.shape)} and {tuple(rank.shape)}")
-    if values.dtype != torch.float32 or rank.dtype != torch.int32:
-        raise TypeError(f"seg_sum_f32: float32 values and int32 rank "
-                        f"expected, got {values.dtype} and {rank.dtype}")
-    if not 1 <= out_size <= SEG_SUM_MAX_GROUPS:
-        raise ValueError(f"seg_sum_f32: out_size {out_size} outside "
-                         f"[1, {SEG_SUM_MAX_GROUPS}]")
-    if values.device != rank.device:
-        raise ValueError("seg_sum_f32: values and rank on different devices")
-    if values.device.type == "cpu":
-        return seg_sum_f32_plain(values, rank, out_size)
-    if values.device.type != "cuda":
-        raise ValueError(f"seg_sum_f32: no kernel for {values.device}")
-    if not (values.is_contiguous() and rank.is_contiguous()):
-        raise ValueError("seg_sum_f32: contiguous tensors expected")
-    s, n = values.shape
-    lib = _lib("seg_sum")
-    with torch.cuda.device(values.device):
-        scratch = torch.empty(lib.seg_sum_f32_scratch(n, s, out_size),
-                              dtype=torch.float32, device=values.device)
-        out = torch.empty(s, out_size, dtype=torch.float32,
-                          device=values.device)
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        err = lib.seg_sum_f32(values.data_ptr(), rank.data_ptr(),
-                              scratch.data_ptr(), out.data_ptr(), s, n,
-                              out_size, stream)
-    if err != 0:
-        raise RuntimeError(f"seg_sum_f32 launch failed: CUDA error {err}")
-    LAUNCHES["seg_sum_f32"] += 1
-    return out
+    return _seg_sum("seg_sum_f32", torch.float32, values, rank, out_size)
+
+
+def seg_sum_f64(values: torch.Tensor, rank: torch.Tensor,
+                out_size: int) -> torch.Tensor:
+    """Per-group sums of ``s`` float64 value rows by group rank, the same
+    kernel built for doubles.  CPU tensors take :func:`seg_sum_f64_plain`."""
+    return _seg_sum("seg_sum_f64", torch.float64, values, rank, out_size)
 
 
 # --------------------------------------------------------------------------

@@ -7,9 +7,11 @@ Algorithm, as in the JAX package's device branch:
 2. the two-phase sizing: the observed group count is read on the host once
    per batch (one device->host read), and every output table has exactly
    that many rows;
-3. every aggregate buffer slot reduces by group id; the exact 0/1 COUNT and
-   any-valid flag sums go through the hand-written segmented-sum kernel
-   (ops/kernels.py), double sums through a segmented scatter;
+3. every aggregate buffer slot reduces by group id; into a host-sized
+   table of at most 256 groups, the exact 0/1 COUNT and any-valid flag sums
+   go through the hand-written segmented-sum kernel (ops/kernels.py) and
+   double sums through its float64 build; integer sums, MIN and MAX, and
+   larger tables take a segmented scatter;
 4. group key values are gathered from each group's first row.
 
 Over several partitions the planner splits an aggregate into a partial one
@@ -107,10 +109,13 @@ def groupby_reduce(key_cols: Sequence[DeviceColumn],
         return out_keys, out_slots, n_groups
 
     # small host-sized group table: float32 sums and exact 0/1 flag sums go
-    # through the segmented-sum kernel (the JAX package's MXU path)
+    # through the segmented-sum kernel (the JAX package's MXU path), double
+    # sums through its float64 build; integer sums stay exact on seg_sum2
     use_kernel = out_size is not None and OUT <= K.SEG_SUM_MAX_GROUPS
 
     def _additive(cols2, dt, flags=False):
+        if use_kernel and dt == torch.float64:
+            return K.seg_sum_f64(torch.stack(cols2), rank, OUT).T
         if use_kernel and (dt == torch.float32
                            or (flags and cap < _F32_EXACT_ROWS)):
             stacked = torch.stack([c.to(torch.float32) for c in cols2])

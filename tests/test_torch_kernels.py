@@ -1,6 +1,8 @@
 """The port's segmented-sum kernel module (spark_rapids_tpu_torch/ops/
-kernels.py) held against the TPU kernel it replaces, seg_sum_f32_pallas,
-run in interpret mode as tests/test_native.py runs it.
+kernels.py) held against what it replaces in the JAX package: seg_sum_f32
+against the TPU kernel seg_sum_f32_pallas, run in interpret mode as
+tests/test_native.py runs it, and seg_sum_f64 against the XLA scatter
+seg_sum2 that takes the double sums there.
 
 The tests hand the wrapper CPU tensors, so it takes the plain PyTorch version;
 the CUDA kernel itself is compared with that plain version on the card by
@@ -11,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from spark_rapids_tpu.ops import segmented as JS
 from spark_rapids_tpu.ops.pallas_kernels import seg_sum_f32_pallas
 from spark_rapids_tpu_torch.ops import kernels as K
 
@@ -62,12 +65,48 @@ def test_plain_seg_sum_matches_pallas_on_random_f32(rng, s):
     np.testing.assert_allclose(got, _numpy_sum(vals, rank, 6), rtol=1e-4)
 
 
+def _seg_sum2(vals, rank, out_size):
+    """The JAX package's double-sum path: seg_sum2 over the [n, s] slot
+    matrix (jnp on the CPU), transposed to the kernel's [s, out_size]."""
+    return np.asarray(JS.seg_sum2(jnp, jnp.asarray(vals.T),
+                                  jnp.asarray(rank), out_size)).T
+
+
+@pytest.mark.parametrize("s", [1, 7])
+@pytest.mark.parametrize("out_size", [1, 6, 256])
+@pytest.mark.parametrize("integers", [False, True])
+def test_plain_seg_sum_f64_matches_seg_sum2_and_numpy(rng, s, out_size,
+                                                      integers):
+    vals = rng.integers(-1000, 1001, (s, N)) if integers \
+        else rng.standard_normal((s, N)) * 1e3
+    vals = vals.astype(np.float64)
+    # dead ranks on both sides of the table
+    rank = rng.integers(-3, out_size + 4, N).astype(np.int32)
+    got = K.seg_sum_f64(torch.from_numpy(vals), torch.from_numpy(rank),
+                        out_size).numpy()
+    assert got.shape == (s, out_size) and got.dtype == np.float64
+    want = _numpy_sum(vals, rank, out_size)
+    if integers:    # integer-valued doubles far below 2^53: exact
+        np.testing.assert_array_equal(got, _seg_sum2(vals, rank, out_size))
+        np.testing.assert_array_equal(got, want)
+    else:           # f64 sums of <= 3000 terms in other orders
+        np.testing.assert_allclose(got, _seg_sum2(vals, rank, out_size),
+                                   rtol=1e-12, atol=1e-9)
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-9)
+
+
 def test_all_dead_ranks_sum_to_zero(rng):
     vals = np.ones((3, 500), np.float32)
     rank = np.full(500, 9, np.int32)
     got = K.seg_sum_f32(torch.from_numpy(vals), torch.from_numpy(rank), 4)
     assert torch.equal(got, torch.zeros(3, 4))
     np.testing.assert_array_equal(_pallas(vals, rank, 4), np.zeros((3, 4)))
+    rank[::2] = -1      # negative ranks are dead too
+    got = K.seg_sum_f64(torch.from_numpy(vals.astype(np.float64)),
+                        torch.from_numpy(rank), 4)
+    assert torch.equal(got, torch.zeros(3, 4, dtype=torch.float64))
+    np.testing.assert_array_equal(
+        _seg_sum2(vals.astype(np.float64), rank, 4), np.zeros((3, 4)))
 
 
 def test_wrapper_on_cpu_takes_plain_version_and_counts_no_launch(rng):
@@ -75,7 +114,10 @@ def test_wrapper_on_cpu_takes_plain_version_and_counts_no_launch(rng):
     vals, rank = _inputs(rng, 4, 6, flags=True)
     v, r = torch.from_numpy(vals), torch.from_numpy(rank)
     assert torch.equal(K.seg_sum_f32(v, r, 6), K.seg_sum_f32_plain(v, r, 6))
-    assert K.LAUNCHES == {"seg_sum_f32": 0, "murmur3_long": 0}
+    d = v.double() * 3.5
+    assert torch.equal(K.seg_sum_f64(d, r, 6), K.seg_sum_f64_plain(d, r, 6))
+    assert K.LAUNCHES == {"seg_sum_f32": 0, "seg_sum_f64": 0,
+                          "murmur3_long": 0}
 
 
 @pytest.mark.parametrize("bad", [
@@ -85,20 +127,32 @@ def test_wrapper_on_cpu_takes_plain_version_and_counts_no_launch(rng):
     dict(values=torch.ones(5)),
     dict(out_size=0),
     dict(out_size=K.SEG_SUM_MAX_GROUPS + 1),
+    # the float64 build takes float64 values only, with the same checks
+    dict(kernel=K.seg_sum_f64),
+    dict(kernel=K.seg_sum_f64, values=torch.ones(2, 5, dtype=torch.float64),
+         rank=torch.zeros(5, dtype=torch.int64)),
+    dict(kernel=K.seg_sum_f64, values=torch.ones(2, 4, dtype=torch.float64)),
+    dict(kernel=K.seg_sum_f64, values=torch.ones(5, dtype=torch.float64)),
+    dict(kernel=K.seg_sum_f64, values=torch.ones(2, 5, dtype=torch.float64),
+         out_size=K.SEG_SUM_MAX_GROUPS + 1),
 ])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
-    args = dict(values=torch.ones(2, 5),
+    args = dict(kernel=K.seg_sum_f32, values=torch.ones(2, 5),
                 rank=torch.zeros(5, dtype=torch.int32), out_size=3)
     args.update(bad)
     with pytest.raises((TypeError, ValueError)):
-        K.seg_sum_f32(args["values"], args["rank"], args["out_size"])
+        args["kernel"](args["values"], args["rank"], args["out_size"])
 
 
 def test_kernel_source_and_build_flags_target_hopper():
     src = (K.CSRC / "seg_sum.cu").read_text()
     assert "seg_sum_f32_pallas" in src          # names the TPU kernel
-    assert 'extern "C"' in src and "int seg_sum_f32(" in src
+    assert "seg_sum2" in src                    # and what the f64 build takes
+    assert 'extern "C"' in src
+    for entry in ("seg_sum_f32", "seg_sum_f64"):
+        assert f"int {entry}(" in src and f"long long {entry}_scratch(" in src
     assert "arch=compute_90a,code=sm_90a" in K.NVCC_FLAGS
+    assert "-Xptxas" in K.NVCC_FLAGS            # spill report of every build
     assert K.BUILD_DIR.parts[-2:] == ("build", "torch_kernels")
 
 

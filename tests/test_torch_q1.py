@@ -206,6 +206,75 @@ def test_groupby_reduce_matches_reference_device_branch(rng, monkeypatch):
             np.testing.assert_array_equal(a, b)
 
 
+def _recording(monkeypatch, name):
+    """Record the values of every call of ``K.<name>`` (then run it)."""
+    calls = []
+    launch = getattr(K, name)
+
+    def record(values, rank, out_size):
+        calls.append((values.dtype, tuple(values.shape), int(out_size)))
+        return launch(values, rank, out_size)
+    monkeypatch.setattr(K, name, record)
+    return calls
+
+
+def test_groupby_reduce_sends_double_sums_to_the_f64_kernel(rng,
+                                                           monkeypatch):
+    _, got = _both(_key_table(rng, 3000))
+    f64 = _recording(monkeypatch, "seg_sum_f64")
+    f32 = _recording(monkeypatch, "seg_sum_f32")
+    ops = [SUM, SUM, COUNT, SUM, MIN, MAX, SUM]
+    slot_idx = [2, 4, 2, 3, 2, 2, 2]     # double, long, -, float, -, -, double
+    slots = [(got.columns[i], got.columns[i].validity) for i in slot_idx]
+    keys = list(got.columns[:2])
+    rank, ng = A.group_phase(keys, got.row_mask())
+    out = int(ng)
+    gk, gs, _ = A.groupby_reduce(keys, slots, ops, got.row_mask(),
+                                 rank64=rank, n_groups=ng, out_size=out)
+    # the two double SUM slots in one launch over the batch's capacity; the
+    # long SUM stays exact on seg_sum2; the 7 any-valid flags, the count and
+    # the float SUM on the f32 build
+    cap = got.row_mask().shape[0]
+    assert f64 == [(torch.float64, (2, cap), out)]
+    assert [c[1][0] for c in f32] == [7, 1, 1]
+    assert gs[3].data.dtype == torch.float32
+    # the same sums as seg_sum2 gives them
+    rank32 = rank.to(torch.int32)
+    for i in (0, 6):
+        col, contrib = slots[i]
+        vals = torch.where(contrib & got.row_mask(), col.data.double(), 0.0)
+        want = S.seg_sum2(vals[:, None], rank32, out)[:, 0]
+        np.testing.assert_allclose(gs[i].data.numpy(), want.numpy(),
+                                   rtol=1e-12)
+    want_long = S.seg_sum2(torch.where(slots[1][1] & got.row_mask(),
+                                       slots[1][0].data, 0)[:, None],
+                           rank32, out)[:, 0]
+    assert gs[1].data.dtype == torch.int64
+    assert torch.equal(gs[1].data, want_long)
+
+
+@pytest.mark.parametrize("groups", [K.SEG_SUM_MAX_GROUPS + 1, None])
+def test_groupby_reduce_keeps_large_tables_and_the_merge_on_seg_sum2(
+        rng, monkeypatch, groups):
+    n = 2000
+    table = pa.table({"k": pa.array(np.arange(n) % 300),
+                      "d": pa.array(rng.standard_normal(n))})
+    _, got = _both(table)
+    f64 = _recording(monkeypatch, "seg_sum_f64")
+    keys = [got.columns[0]]
+    slots = [(got.columns[1], got.columns[1].validity)]
+    rank, ng = A.group_phase(keys, got.row_mask())
+    assert int(ng) == 300
+    # above 256 groups, or the final merge's table (no host-sized table)
+    out_size = None if groups is None else int(ng)
+    _, gs, _ = A.groupby_reduce(keys, slots, [SUM], got.row_mask(),
+                                rank64=rank, n_groups=ng, out_size=out_size)
+    assert f64 == []
+    want = np.bincount(np.arange(n) % 300,
+                       weights=table.column("d").to_numpy())
+    np.testing.assert_allclose(gs[0].data.numpy()[:300], want, rtol=1e-12)
+
+
 # --------------------------------------------------------------------------
 # the query end to end
 # --------------------------------------------------------------------------
