@@ -23,27 +23,63 @@
 // integers at first use, and uploads them once per device.
 //
 // Bound: integer operations.  A double costs three 64 x 128-bit products (~12 IMAD.WIDE and
-// adds each), the candidate tests and a loop that strips trailing zeros: about 150 32-bit
+// adds each), the candidate tests and the strip of trailing zeros: about 150 32-bit
 // operations for 8 bytes read and 13 written.  At the card's ~16.7 T integer operations a
 // second that is ~9 ps a row against ~6 ps of bytes at 3.35 TB/s.
 //
 // Design: one thread a row, no shared memory (the tables, ~10 KB, stay in L1 and L2), a
-// grid-stride loop; every branch depends only on the row's own bits.
+// grid-stride loop over at most 16 blocks an SM; every branch depends only
+// on the row's own bits, and every path of a row (the integers, Schubfach's two choices)
+// ends in the one strip, so a warp whose rows part never runs it twice.  The digits are
+// unsigned.  Schubfach leaves 16 or 17 digits, so two-decimal money keeps ~10 trailing
+// zeros: they go in five fixed steps, not a divide by ten each.  10^k divides d exactly
+// when d 5^-k mod 2^64, rotated right by k, is at most (2^64 - 1) / 10^k, and that is then
+// d / 10^k (Granlund and Montgomery's divisibility test, as Dragonbox's
+// remove_trailing_zeros uses it).  The steps are 10^8 in 64 bits, then 10^8, 10^4, 10^2
+// and 10 in 32 bits where what is left fits (a 17-digit value's does once 10^8 divided
+// it; the same test mod 2^32), else in 64: any count below 20, each step taken only where it
+// holds.  choose's s / 10 is a multiply-high.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;
+constexpr int kBlocksPerSm = 16;
 constexpr uint64_t kMask63 = (1ull << 63) - 1;
 constexpr uint64_t kMask32 = (1ull << 32) - 1;
+constexpr uint64_t kInv5 = 0xcccccccccccccccdull;  // 5^-1 mod 2^64, and ceil(2^67 / 10)
 
 struct Out {
-  long long digits;
+  uint64_t digits;
   int exponent;
   int side;
 };
+
+__host__ __device__ constexpr uint64_t inv5_pow(int k) {  // 5^-k mod 2^64
+  uint64_t r = 1;
+  for (int i = 0; i < k; ++i) r *= kInv5;
+  return r;
+}
+
+__host__ __device__ constexpr uint64_t ten_pow(int k) {
+  uint64_t p = 1;
+  for (int i = 0; i < k; ++i) p *= 10;
+  return p;
+}
+
+// d / 10^K and e + K where 10^K divides d (d != 0); else d and e as they were
+template <int K>
+__device__ __forceinline__ void strip_step(uint64_t& d, int& e) {
+  constexpr uint64_t inv = inv5_pow(K), lim = ~0ull / ten_pow(K);
+  const uint64_t x = d * inv;
+  const uint64_t q = (x >> K) | (x << (64 - K));
+  const bool ok = q <= lim;
+  d = ok ? q : d;
+  e += ok ? K : 0;
+}
 
 __device__ __forceinline__ uint64_t rop_d(uint64_t g1, uint64_t g0, uint64_t cp) {
   // rop(cp g 2^-127) with g = g1 2^63 + g0, as DoubleToDecimal.rop computes it
@@ -61,45 +97,75 @@ __device__ __forceinline__ uint64_t rop_f(uint64_t g, uint64_t cp) {
   return (x1 >> 31) | (((x1 & kMask32) + kMask32) >> 32);
 }
 
-__device__ __forceinline__ Out finish(long long d, int e, long long vb, long long d_at_k) {
+// d / 10^K and e + K where 10^K divides d, in 32 bits (d != 0)
+template <int K>
+__device__ __forceinline__ void strip_step32(uint32_t& d, int& e) {
+  constexpr uint32_t inv = static_cast<uint32_t>(inv5_pow(K));
+  constexpr uint32_t lim = 0xffffffffu / static_cast<uint32_t>(ten_pow(K));
+  const uint32_t q = __funnelshift_r(d * inv, d * inv, K);
+  const bool ok = q <= lim;
+  d = ok ? q : d;
+  e += ok ? K : 0;
+}
+
+// d without its trailing zeros, e plus their count (d != 0)
+__device__ __forceinline__ void strip(uint64_t& d, int& e) {
+  // 10^8 in 64 bits; what is left of a 17-digit value then fits 32 bits
+  strip_step<8>(d, e);
+  if (d <= 0xffffffffull) {
+    uint32_t d32 = static_cast<uint32_t>(d);
+    strip_step32<8>(d32, e);
+    strip_step32<4>(d32, e);
+    strip_step32<2>(d32, e);
+    strip_step32<1>(d32, e);
+    d = d32;
+  } else {
+    strip_step<8>(d, e);
+    strip_step<4>(d, e);
+    strip_step<2>(d, e);
+    strip_step<1>(d, e);
+  }
+}
+
+// d (vb's digits at exponent e) without trailing zeros, and its side against the value:
+// one copy for every path of a row
+__device__ __forceinline__ Out finish(uint64_t d, int e, uint64_t vb) {
   // the side is read at the scale of vb (4 units a digit step); then trailing zeros go
-  const long long four = d_at_k << 2;
+  const uint64_t four = d << 2;
   Out o;
   o.side = four < vb ? -1 : (four > vb ? 1 : 0);
-  while (d != 0 && d % 10 == 0) {
-    d /= 10;
-    ++e;
-  }
+  if (d != 0) strip(d, e);
   o.digits = d;
   o.exponent = e;
   return o;
 }
 
-// Schubfach's choice among the candidates, shared by both widths
-__device__ __forceinline__ Out choose(long long vb, long long vbl, long long vbr, int out,
-                                      int k, int dk) {
-  const long long s = vb >> 2;
+// Schubfach's choice among the candidates, shared by both widths: the digits d at
+// exponent e
+__device__ __forceinline__ void choose(uint64_t vb, uint64_t vbl, uint64_t vbr, int out, int k,
+                                       int dk, uint64_t& d, int& e) {
+  const uint64_t s = vb >> 2;
   if (s >= 100) {
-    const long long sp10 = 10 * (s / 10);
-    const long long tp10 = sp10 + 10;
+    const uint64_t sp10 = 10 * (__umul64hi(s, kInv5) >> 3);  // 10 (s / 10)
+    const uint64_t tp10 = sp10 + 10;
     const bool upin = vbl + out <= (sp10 << 2);
     const bool wpin = (tp10 << 2) + out <= vbr;
     if (upin != wpin) {
-      const long long d = upin ? sp10 : tp10;
-      return finish(d, k, vb, d);
+      d = upin ? sp10 : tp10;
+      e = k;
+      return;
     }
   }
-  const long long t = s + 1;
+  const uint64_t t = s + 1;
   const bool uin = vbl + out <= (s << 2);
   const bool win = (t << 2) + out <= vbr;
-  long long d;
   if (uin != win) {
     d = uin ? s : t;
   } else {
-    const long long cmp = vb - ((s + t) << 1);
-    d = (cmp < 0 || (cmp == 0 && (s & 1) == 0)) ? s : t;
+    const uint64_t mid = (s + t) << 1;
+    d = (vb < mid || (vb == mid && (s & 1) == 0)) ? s : t;
   }
-  return finish(d, k + dk, vb, d);
+  e = k + dk;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -113,7 +179,8 @@ dtoa_f64_kernel(const uint64_t* __restrict__ bits, long long n, const int32_t* _
     const uint64_t b = bits[i];
     const int bq = static_cast<int>((b >> 52) & 0x7ff);
     const uint64_t t = b & ((1ull << 52) - 1);
-    Out o{0, 0, 0};
+    uint64_t d = 0, vb = 0;  // NaN, the infinities and the zeros: digits 0
+    int e = 0;
     if (bq != 0x7ff && (bq != 0 || t != 0)) {
       int q, dk = 0;
       uint64_t c;
@@ -123,9 +190,9 @@ dtoa_f64_kernel(const uint64_t* __restrict__ bits, long long n, const int32_t* _
         q = -mq;
         c = (1ull << 52) | t;
         if (0 < mq && mq < 53 && ((c >> mq) << mq) == c) {
-          // an integer below 2^53: its own digits
-          o = finish(static_cast<long long>(c >> mq), 0, 0, 0);
-          o.side = 0;
+          // an integer below 2^53: its own digits, equal to the value
+          d = c >> mq;
+          vb = d << 2;
           done = true;
         }
       } else {
@@ -145,13 +212,12 @@ dtoa_f64_kernel(const uint64_t* __restrict__ bits, long long n, const int32_t* _
         const int k = kq[(regular ? 0 : nq) + (q + 1074)];
         const int h = q + f2[k - k_min] + 2;
         const uint64_t g1 = g[2 * (k - k_min)], g0 = g[2 * (k - k_min) + 1];
-        const long long vb = static_cast<long long>(rop_d(g1, g0, cb << h));
-        const long long vbl = static_cast<long long>(rop_d(g1, g0, cbl << h));
-        const long long vbr = static_cast<long long>(rop_d(g1, g0, cbr << h));
-        o = choose(vb, vbl, vbr, out, k, dk);
+        vb = rop_d(g1, g0, cb << h);
+        choose(vb, rop_d(g1, g0, cbl << h), rop_d(g1, g0, cbr << h), out, k, dk, d, e);
       }
     }
-    digits[i] = o.digits;
+    const Out o = finish(d, e, vb);
+    digits[i] = static_cast<long long>(o.digits);
     exps[i] = o.exponent;
     sides[i] = static_cast<int8_t>(o.side);
   }
@@ -168,7 +234,8 @@ dtoa_f32_kernel(const uint32_t* __restrict__ bits, long long n, const int32_t* _
     const uint32_t b = bits[i];
     const int bq = static_cast<int>((b >> 23) & 0xff);
     const uint32_t t = b & ((1u << 23) - 1);
-    Out o{0, 0, 0};
+    uint64_t d = 0, vb = 0;
+    int e = 0;
     if (bq != 0xff && (bq != 0 || t != 0)) {
       int q, dk = 0;
       uint32_t c;
@@ -178,8 +245,8 @@ dtoa_f32_kernel(const uint32_t* __restrict__ bits, long long n, const int32_t* _
         q = -mq;
         c = (1u << 23) | t;
         if (0 < mq && mq < 24 && ((c >> mq) << mq) == c) {
-          o = finish(static_cast<long long>(c >> mq), 0, 0, 0);
-          o.side = 0;
+          d = c >> mq;
+          vb = d << 2;
           done = true;
         }
       } else {
@@ -199,16 +266,31 @@ dtoa_f32_kernel(const uint32_t* __restrict__ bits, long long n, const int32_t* _
         const int k = kq[(regular ? 0 : nq) + (q + 149)];
         const int h = q + f2[k - k_min] + 33;
         const uint64_t gk = g[k - k_min];
-        const long long vb = static_cast<long long>(rop_f(gk, cb << h));
-        const long long vbl = static_cast<long long>(rop_f(gk, cbl << h));
-        const long long vbr = static_cast<long long>(rop_f(gk, cbr << h));
-        o = choose(vb, vbl, vbr, out, k, dk);
+        vb = rop_f(gk, cb << h);
+        choose(vb, rop_f(gk, cbl << h), rop_f(gk, cbr << h), out, k, dk, d, e);
       }
     }
-    digits[i] = o.digits;
+    const Out o = finish(d, e, vb);
+    digits[i] = static_cast<long long>(o.digits);
     exps[i] = o.exponent;
     sides[i] = static_cast<int8_t>(o.side);
   }
+}
+
+// The current device's SM count, queried once per device (launches may come from several
+// host threads)
+constexpr int kMaxDevices = 64;
+std::atomic<int> sm_counts[kMaxDevices];
+
+cudaError_t sm_count(int& sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  sms = dev < kMaxDevices ? sm_counts[dev].load(std::memory_order_relaxed) : 0;
+  if (sms > 0) return cudaSuccess;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && dev < kMaxDevices) sm_counts[dev].store(sms, std::memory_order_relaxed);
+  return e;
 }
 
 }  // namespace
@@ -224,8 +306,13 @@ int dtoa_shortest(const void* values, int is_float, long long n, const void* kq,
                   void* sides, void* stream) {
   if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
+  // at most kBlocksPerSm blocks an SM, a grid-stride loop past them
+  int sms = 0;
+  const cudaError_t e = sm_count(sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
   long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if (blocks > static_cast<long long>(sms) * kBlocksPerSm)
+    blocks = static_cast<long long>(sms) * kBlocksPerSm;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_float) {
     dtoa_f32_kernel<<<static_cast<int>(blocks), kThreads, 0, s>>>(

@@ -142,6 +142,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.dfa_match_spans.argtypes = [vp, ll, vp, vp, vp, vp, i, i, i, i, i,
                                         i, vp, vp, ll, vp]
         lib.dfa_match_spans.restype = i
+        lib.dfa_spans_path.argtypes = [ll, i, i]
+        lib.dfa_spans_path.restype = i
         return
     if name != "seg_sum":
         raise ValueError(f"no C interface declared for {name}")
@@ -666,11 +668,14 @@ def _carry(cols: list) -> list:
     return out + [carry]
 
 
-def _mul_limbs(a: list, b: list) -> list:
-    cols = [0] * (len(a) + len(b))
+def _mul_limbs(a: list, b: list, n: int | None = None) -> list:
+    """The product's limbs; with ``n`` only its low ``n`` columns (the
+    product mod 2^(21 n), and a carry limb)."""
+    cols = [0] * (len(a) + len(b) if n is None else n)
     for i, ai in enumerate(a):
         for j, bj in enumerate(b):
-            cols[i + j] = cols[i + j] + ai * bj
+            if i + j < len(cols):
+                cols[i + j] = cols[i + j] + ai * bj
     return _carry(cols)
 
 
@@ -705,6 +710,58 @@ def _rop_f64(g1, g0, cp):
                    _shr_limbs(_mul_limbs(_limbs(g0), c), 64))
     sticky = (w[0] | w[1] | w[2]) != 0
     return _limbs_value(w[3:6]) | sticky.to(torch.int64)
+
+
+def _const_limbs(c: int, n: int = 4) -> list:
+    """A Python integer below 2^(21 n) as limbs."""
+    return [(c >> (_LB * i)) & _LMASK for i in range(n)]
+
+
+#: 5^-1 mod 2^64, which is also ceil(2^67 / 10)
+_INV5 = 0xcccccccccccccccd
+
+
+def _div10(s: torch.Tensor) -> torch.Tensor:
+    """s // 10 for 0 <= s < 2^63 as the kernel takes it: the high word of
+    s * ceil(2^67 / 10), shifted right by 3 (bits 67 and up)."""
+    return _limbs_value(_shr_limbs(_mul_limbs(_limbs(s),
+                                              _const_limbs(_INV5)), 67))
+
+
+def _strip_test(d: torch.Tensor, k: int, small):
+    """(10^k divides d, d / 10^k) by the kernel's test, in 32-bit words
+    where ``small`` (d < 2^32 there) and in 64-bit words elsewhere: x = d
+    5^-k mod 2^bits, q = x rotated right by k, divisible when q <= (2^bits
+    - 1) / 10^k.  x comes from 21-bit limbs (the low 84 bits of the
+    product), and the test reads the rotation's two parts: a bit rotated
+    in from x's low k bits would put q at or above 2^(bits - k), past the
+    limit, so q <= limit is those bits zero and x >> k <= limit."""
+    inv64 = pow(5, -k, 1 << 64)
+    inv = [torch.where(small, a, b) for a, b in
+           zip(_const_limbs(inv64 & 0xffffffff), _const_limbs(inv64))]
+    x = _mul_limbs(_limbs(d), inv, 4)[:4]
+    mask = torch.where(small, (1 << (32 - k)) - 1, (1 << (64 - k)) - 1)
+    lim = torch.where(small, 0xffffffff // 10 ** k, ((1 << 64) - 1) // 10 ** k)
+    q = _limbs_value(_shr_limbs(x, k)) & mask
+    return ((x[0] & ((1 << k) - 1)) == 0) & (q <= lim), q
+
+
+def strip_zeros_plain(d: torch.Tensor, e: torch.Tensor):
+    """(d without its trailing zeros, e plus their count) for int64 digits
+    0 <= d < 2^63, in the steps of ``csrc/dtoa.cu``: 10^8 in 64-bit words,
+    then 10^8, 10^4, 10^2 and 10 in 32-bit words where what is left is
+    below 2^32, else in 64 (:func:`_strip_test`); each step taken where it
+    holds.  d = 0 stays."""
+    nz = d != 0
+    small = torch.zeros_like(nz)
+    for i, k in enumerate((8, 8, 4, 2, 1)):
+        ok, q = _strip_test(d, k, small)
+        ok = nz & ok
+        d = torch.where(ok, q, d)
+        e = e + torch.where(ok, k, 0).to(e.dtype)
+        if i == 0:  # the word size of the four steps left
+            small = d <= 0xffffffff
+    return d, e
 
 
 def _rop_f32(g, cp):
@@ -755,7 +812,7 @@ def dtoa_plain(values: torch.Tensor):
         g1, g0 = g[ki, 0], g[ki, 1]
         vb, vbl, vbr = (_rop_f64(g1, g0, x << h) for x in (cb, cbl, cbr))
     s = vb >> 2
-    sp10 = 10 * torch.div(s, 10, rounding_mode="floor")
+    sp10 = 10 * _div10(s)
     tp10 = sp10 + 10
     upin = vbl + out <= (sp10 << 2)
     wpin = (tp10 << 2) + out <= vbr
@@ -775,10 +832,7 @@ def dtoa_plain(values: torch.Tensor):
     d = torch.where(special, 0, d)
     e = torch.where(special, 0, e)
     side = torch.where(special, 0, side)
-    for _ in range(17):
-        z = (d != 0) & (torch.remainder(d, 10) == 0)
-        d = torch.where(z, torch.div(d, 10, rounding_mode="floor"), d)
-        e = e + z.to(e.dtype)
+    d, e = strip_zeros_plain(d, e)
     return d, e.to(torch.int32), side.to(torch.int8)
 
 
@@ -948,6 +1002,14 @@ def dfa_search(dfa: dict, chars: torch.Tensor,
     return hit
 
 
+def dfa_spans_path(dfa: dict, width: int) -> int:
+    """The path the span kernel takes for rows of ``width`` bytes (0 the
+    shared-memory tile, 1 a warp a row; ``csrc/regex_dfa.cu``).  Builds the
+    kernel: on the card's machine only."""
+    return _lib("regex_dfa").dfa_spans_path(width, dfa["states"],
+                                            dfa["classes"])
+
+
 def dfa_match_spans(dfa: dict, chars: torch.Tensor, lens: torch.Tensor):
     """(bool chosen, int32 mlen), each [rows, width + 1]: the leftmost-
     longest non-overlapping matches of the regex (see
@@ -957,10 +1019,10 @@ def dfa_match_spans(dfa: dict, chars: torch.Tensor, lens: torch.Tensor):
     if chars.device.type == "cpu":
         return dfa_match_spans_plain(dfa, chars, lens)
     rows, width = chars.shape
-    # zeroed: the kernel writes the chosen starts only
-    chosen = torch.zeros(rows, width + 1, dtype=torch.bool,
+    # the kernel writes every position
+    chosen = torch.empty(rows, width + 1, dtype=torch.bool,
                          device=chars.device)
-    mlen = torch.zeros(rows, width + 1, dtype=torch.int32,
+    mlen = torch.empty(rows, width + 1, dtype=torch.int32,
                        device=chars.device)
     if rows:
         _dfa_launch("dfa_match_spans", dfa, chars, lens, [chosen, mlen])

@@ -17,6 +17,7 @@ Java).  The tables of the kernel are checked against their exact
 definitions."""
 
 import math
+import random
 from fractions import Fraction
 
 import numpy as np
@@ -25,6 +26,7 @@ import pytest
 import torch
 
 import spark_rapids_tpu as jsrt
+from spark_rapids_tpu.sql.expressions.cast import _java_double_str
 from spark_rapids_tpu.sql.session import TpuSession
 import spark_rapids_tpu_torch as srt
 from spark_rapids_tpu_torch.ops import cast_strings as CS
@@ -135,6 +137,57 @@ def test_kernel_sides_against_the_exact_value():
                           sides.tolist()):
         dec, ex = decimal.Decimal(d).scaleb(e), decimal.Decimal(abs(v))
         assert s == (dec > ex) - (dec < ex), repr(v)
+
+
+def _strip(v: int):
+    """(v without its trailing zeros, their count) in Python's integers."""
+    count = 0
+    while v and v % 10 == 0:
+        v //= 10
+        count += 1
+    return v, count
+
+
+@pytest.mark.parametrize("zeros", range(17))
+def test_trailing_zero_strip(zeros):
+    """The kernel's strip (``strip_zeros_plain``: 10^8 tested by a product
+    with 5^-8 mod 2^64, then 10^8, 10^4, 10^2 and 10 mod 2^32 where the
+    rest fits 32 bits, else mod 2^64, on 21-bit limbs) against Python's
+    integers, for digits of up to 17 places ending in ``zeros`` zeros;
+    through ``dtoa_plain``, doubles of 17 - ``zeros`` significant digits
+    give those digits and exponent exactly (up to 15 digits, where
+    the decimal is the double's shortest) or Java's text (16 and 17); and
+    two-decimal money in [1e-3, 1e7) gives the JAX package's
+    ``_java_double_str``, which is Java's there."""
+    rng = random.Random(1700 + zeros)
+    places = 17 - zeros
+    leads = [rng.randrange(10 ** (n - 1), 10 ** n) for n in
+             (rng.randint(1, places) for _ in range(300))]
+    leads = [m + 1 if m % 10 == 0 else m for m in leads] + [
+        1, 10 ** places - 1]
+    ds = [m * 10 ** zeros for m in leads]
+    d, e = K.strip_zeros_plain(torch.tensor(ds, dtype=torch.int64),
+                               torch.full((len(ds),), -3, dtype=torch.int64))
+    want = [_strip(v) for v in ds]
+    assert d.tolist() == [w[0] for w in want]
+    assert e.tolist() == [w[1] - 3 for w in want]
+    assert all(w[1] == zeros for w in want)
+
+    exps = [rng.randint(-20, 20) for _ in leads]
+    full = [rng.randrange(10 ** (places - 1), 10 ** places) for _ in leads]
+    full = [m + 1 if m % 10 == 0 else m for m in full]
+    vals = np.array([float(f"{m}e{x}") for m, x in zip(full, exps)])
+    digits, exponents, _ = K.dtoa_shortest(torch.from_numpy(vals))
+    if places <= 15:
+        assert digits.tolist() == full
+        assert exponents.tolist() == exps
+    for v, got in zip(vals, texts(vals)):
+        assert got == java_double(v), repr(v)
+
+    cents = np.array([rng.randrange(1, 10 ** 9) for _ in range(300)])
+    money = cents / 100.0
+    money = money[(money >= 1e-3) & (money < 1e7)]
+    assert texts(money) == [_java_double_str(float(v)) for v in money]
 
 
 def _reference_is_java(x: float) -> bool:

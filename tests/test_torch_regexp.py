@@ -141,6 +141,39 @@ def test_walks_equal_the_reference_numpy_backend(pat):
     assert K.LAUNCHES["dfa_search"] == K.LAUNCHES["dfa_match_spans"] == 0
 
 
+SPAN_PATTERNS = [r"[aeiou]+", r"^[0-9]+", r"[0-9]+$", r"x*", r"^$",
+                 r"a.c", r" "]
+
+
+@pytest.mark.parametrize("width", [1, 15, 16, 17, 33, 65, 200])
+def test_spans_at_every_width_equal_the_reference(width):
+    """``dfa_match_spans_plain`` (what the span kernel is held to on the
+    card) against the JAX module's numpy backend at the widths of the
+    kernel's paths and their edges: empty rows and rows of the full width,
+    matches ending at the row's end (``p == len``), empty matches (``x*``,
+    ``^$``), and patterns anchored at either end."""
+    rng = np.random.default_rng(width)
+    n = 61
+    alphabet = np.frombuffer(b"aeiou bcx0123456789", dtype=np.uint8)
+    lens = rng.integers(0, width + 1, n).astype(np.int32)
+    lens[:4] = [0, width, 0, min(width, 1)]
+    chars = alphabet[rng.integers(0, alphabet.size, (n, width))]
+    chars[1, width - 1] = ord("e")          # a match at the row's end
+    chars[np.arange(width)[None] >= lens[:, None]] = 0
+    tc, tl = torch.from_numpy(chars), torch.from_numpy(lens)
+    for pat in SPAN_PATTERNS:
+        rx, jrx = RX.compile_regex(pat), JRX.compile_regex(pat)
+        chosen, mlen = K.dfa_match_spans(K.dfa_tables(rx, "cpu"), tc, tl)
+        jc, jm = JRX.dfa_match_spans(np, jrx, chars, lens)
+        np.testing.assert_array_equal(chosen.numpy(), jc, err_msg=pat)
+        np.testing.assert_array_equal(mlen.numpy(), jm, err_msg=pat)
+        if pat == r"[aeiou]+":
+            ends = np.arange(width + 1)[None] + jm
+            assert (jc & (jm > 0) & (ends == lens[:, None])).any()
+        if pat in (r"x*", r"^$"):
+            assert (jc & (jm == 0)).any()
+
+
 def test_replace_and_first_match_equal_the_reference():
     chars, lens = seeded_rows(seed=4)
     tc, tl = torch.from_numpy(chars), torch.from_numpy(lens)
