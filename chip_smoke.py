@@ -5276,32 +5276,57 @@ def string_rows(rng, lens, width: int, alphabet=None):
     return chars, lens
 
 
+#: check_md5's batch with rows that are not valid: its capacity, and its
+#: live rows (no multiple of 256, so a block's rows part at the dead tail)
+MD5_VALID_CHECK = (1 << 17, 100_003)
+
+
 def check_md5(K, torch) -> float:
     """md5 kernel vs plain on the card, byte for byte, and vs hashlib on
     the host: the edge lengths at widths 128 (aligned words) and 130 (byte
     reads), a row of the full width, and o_comment's shape (1,500,000 rows
-    of up to 32 bytes).  Returns the max abs error (0.0)."""
+    of up to 32 bytes), every row valid; then a batch of
+    :data:`MD5_VALID_CHECK` rows at width 64 and at 130 with ``valid``: a
+    dead tail past its live rows and nulls among them, each with bytes and
+    a length (the kernel must not hash them: 32 zero bytes).  Returns the
+    max abs error (0.0)."""
     import hashlib
     rng = np.random.default_rng(SEED + 16)
-    cases = [(list(MD5_EDGE_LENS) + [1, 128], 128),
-             (list(MD5_EDGE_LENS) + [130], 130),
-             (rng.integers(0, 33, 1_500_000), 32)]
-    for lens, width in cases:
+    cap, live = MD5_VALID_CHECK
+    cases = [(list(MD5_EDGE_LENS) + [1, 128], 128, False),
+             (list(MD5_EDGE_LENS) + [130], 130, False),
+             (rng.integers(0, 33, 1_500_000), 32, False),
+             (rng.integers(0, 65, cap), 64, True),
+             (rng.integers(0, 131, cap), 130, True)]
+    for lens, width, with_valid in cases:
         chars, lens = string_rows(rng, lens, width)
         c, n = torch.from_numpy(chars).cuda(), torch.from_numpy(lens).cuda()
-        a = K.md5(c, n)
-        b = K.md5_plain(c, n)
+        ok = np.ones(lens.size, dtype=bool)
+        if with_valid:
+            ok[live:] = False
+            ok[rng.random(lens.size) < 0.05] = False
+        v = torch.from_numpy(ok).cuda() if with_valid else None
+        a = K.md5(c, n, v)
+        b = K.md5_plain(c, n, v)
         torch.cuda.synchronize()
         if not torch.equal(a, b):
             raise AssertionError(f"md5 width {width}: kernel != plain")
-        got = a[:200].cpu().numpy()
-        for r in range(min(200, lens.size)):
+        got = a.cpu().numpy()
+        if got[~ok].any():
+            raise AssertionError(f"md5 width {width}: a row that is not "
+                                 "valid is not 32 zero bytes")
+        checked = np.flatnonzero(ok)[:200]
+        if with_valid:   # and the valid rows beside the dead tail
+            checked = np.concatenate([checked, np.arange(live - 40, live)])
+        for r in checked[ok[checked]]:
             want = hashlib.md5(bytes(chars[r, :lens[r]])).hexdigest()
             if bytes(got[r]).decode() != want:
                 raise AssertionError(f"md5 row of {lens[r]} bytes: "
                                      f"{bytes(got[r])} != hashlib {want}")
-        log(f"  md5 {lens.size} rows at width {width}: kernel == plain, "
-            f"the first {min(200, lens.size)} == hashlib")
+        log(f"  md5 {lens.size} rows at width {width}"
+            + (f", {int(ok.sum())} valid" if with_valid else "")
+            + f": kernel == plain, {int(ok[checked].sum())} valid rows == "
+            "hashlib" + (", the rest 32 zero bytes" if with_valid else ""))
     return 0.0
 
 
@@ -5404,7 +5429,8 @@ def check_dfa(K, torch) -> float:
     at each of :data:`DFA_CHECK_WIDTHS` over :data:`DFA_CHECK_ROWS` rows of
     0 to ``width`` bytes (empty rows and rows of the full width among them)
     for each of :func:`dfa_cases`, and over a synthetic table of 255 states
-    and 200 classes (65,535 bytes: dynamic shared memory); the span
+    and 200 classes (65,535 bytes, and the search's fused table 130,560
+    bytes: dynamic shared memory); the span
     kernel's paths (the shared-memory tile, a warp a row) are each taken at
     some width, each also from rows that start one byte off 16 (staged
     byte by byte).  Returns 0.0."""
@@ -5429,6 +5455,9 @@ def check_dfa(K, torch) -> float:
         accept=torch.from_numpy(accept).cuda(),
         states=states, classes=classes, start=0, dead=states - 1,
         anchored_start=False, anchored_end=False)
+    # the search kernel's table: 130,560 bytes of shared memory
+    synth["fused"] = K.dfa_fused(synth["table"], synth["cls"],
+                                 synth["accept"])
     tables.append(("255 states x 200 classes", synth))
     paths = {}
     for width in DFA_CHECK_WIDTHS:
@@ -5884,11 +5913,11 @@ L_COMMENT_SEED = 161
 #: x 1.98 GHz (the H100 SXM's boost clock); the data sheet gives no integer
 #: rate outside the tensor cores
 INT_OPS_PER_S = 132 * 64 * 1.98e9
-#: integer operations the bounds count: an MD5 block (64 steps of about 5
-#: instructions on sm_90: one LOP3 for F, G, H or I, two IADD3, one funnel
-#: shift and one add; then the four adds to the state), a double or float's
-#: shortest digits, a DFA step
-MD5_OPS_PER_BLOCK = 330
+#: integer operations the bounds count: an MD5 block (the SASS of md5.cu's
+#: 64 steps and four adds to the state on sm_90a, 293 instructions as
+#: tools/strings_ab.py --mode md5_search counts them; 330, ~5 a step, before
+#: that count), a double or float's shortest digits, a DFA step
+MD5_OPS_PER_BLOCK = 293
 DTOA_OPS = 150
 DFA_OPS_PER_BYTE = 6
 #: rows of phase 3p's slice of the rig's fact table held row by row to

@@ -25,11 +25,26 @@
 // data; the bound counts the bytes read once and the (width + 1) * 5 bytes written, which
 // is what a walk that touches each byte a few times in shared memory is held to.
 //
-// Design: the next-state table (at most 256 states by the compiler's limit, so uint8
-// entries; up to 64 KB, in dynamic shared memory above 48 KB), the byte-class map and the
-// accept flags are loaded into shared memory by each block.  The search: each thread walks
-// its own row with no synchronisation, 16 bytes a load where the width allows.  The spans
-// take one of two kernels, by the row width and the shared memory a tile needs:
+// Design of the search: the host fuses the byte classes, the next-state table and the
+// accept flags into one uint16 table of [states, 256] entries (next | accept[next] << 8;
+// at most 128 KB for 256 states, dynamic shared memory), which each block copies into
+// shared memory with 16-byte copies.  Each thread walks its own row with no
+// synchronisation, 16 bytes a load where the width allows.  A byte costs one dependent
+// shared-memory load: the entry's index is the state (the last entry's low byte) and the
+// byte side by side, one byte permute, and the accept bits are OR-ed up as they come.  A
+// hit stays a hit and the dead state goes only to itself and accepts nothing, so a whole
+// 16-byte chunk is walked with no test; the row's end and the exit (a hit, or the dead
+// state) are tested once a chunk.  A pattern anchored at its end takes the accept bit of
+// the last entry instead.  The grid is as many blocks as the SMs hold at once with the
+// table's shared memory, read once per device and table size.  What bounds it on the H100
+// is the rows' reads, not the walk (PERF.md: a kernel that only stages the table and reads
+// the rows takes nearly as long); two rows a thread walked interleaved, and a warp's rows
+// staged in shared memory, were slower.
+//
+// Design of the spans: the next-state table (at most 256 states by the compiler's limit,
+// so uint8 entries; up to 64 KB, in dynamic shared memory above 48 KB), the byte-class map
+// and the accept flags are loaded into shared memory by each block.  The spans take one
+// of two kernels, by the row width and the shared memory a tile needs:
 //   the tile kernel, for rows of up to 254 bytes whose tile fits a block's shared memory
 //     (the regexp items' shapes; PERF.md): each warp takes 32 rows at a time and copies
 //     their bytes into shared memory with 16-byte loads (rows padded to an odd count of
@@ -60,7 +75,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 8;
 
 struct Dfa {
   const uint8_t* table;   // [states, classes] next state
@@ -88,44 +102,99 @@ __device__ __forceinline__ int step(const Dfa& d, int state, uint8_t byte) {
   return d.table[state * d.classes + d.cls[byte]];
 }
 
-__global__ void __launch_bounds__(kThreads)
-dfa_search_kernel(const uint8_t* __restrict__ chars, long long width,
-                  const int32_t* __restrict__ lens, const uint8_t* __restrict__ table,
-                  const uint8_t* __restrict__ cls, const uint8_t* __restrict__ accept, int states,
-                  int classes, int start, int dead, int anchored_end, uint8_t* __restrict__ hit,
-                  long long rows) {
-  extern __shared__ uint8_t smem[];
-  const Dfa d = load(smem, table, cls, accept, states, classes);
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  const bool vec16 = (width & 15) == 0 && (reinterpret_cast<uintptr_t>(chars) & 15) == 0;
-  for (long long r = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; r < rows;
-       r += stride) {
-    const uint8_t* p = chars + r * width;
-    int len = lens[r];
-    len = len < 0 ? 0 : (len > width ? static_cast<int>(width) : len);
-    int state = start;
-    bool h = d.accept[state] && (!anchored_end || len == 0);
-    if (vec16) {
-      // 16 bytes a load, walked from registers
-      for (int j0 = 0; j0 < len && !h && state != dead; j0 += 16) {
-        const uint4 v = *reinterpret_cast<const uint4*>(p + j0);
-        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+constexpr int kSearchThreads = 512;
+
+// One byte of the search: e is the last entry (its low byte the state); the next entry is
+// at (state << 8) | byte, the byte k of w.  h gathers the accept bits (bit 8).
+template <bool kAnchoredEnd>
+__device__ __forceinline__ void search_step(const uint16_t* fused, uint32_t w, int k,
+                                            uint32_t& e, uint32_t& h) {
+  e = fused[__byte_perm(w, e, 0x6640 | k)];  // bytes: w's k-th, e's state, 0, 0
+  if (!kAnchoredEnd) h |= e;
+}
+
+template <bool kAnchoredEnd>
+__device__ __forceinline__ void search_word(const uint16_t* fused, uint32_t w, uint32_t& e,
+                                            uint32_t& h) {
 #pragma unroll
-        for (int k = 0; k < 16; ++k) {
-          const int j = j0 + k;
-          if (j < len && !h && state != dead) {
-            state = step(d, state, static_cast<uint8_t>(w[k >> 2] >> (8 * (k & 3))));
-            h = d.accept[state] && (!anchored_end || j == len - 1);
-          }
-        }
-      }
-    } else {
-      for (int j = 0; j < len && !h && state != dead; ++j) {
-        state = step(d, state, p[j]);
-        h = d.accept[state] && (!anchored_end || j == len - 1);
-      }
-    }
-    hit[r] = h ? 1 : 0;
+  for (int k = 0; k < 4; ++k) search_step<kAnchoredEnd>(fused, w, k, e, h);
+}
+
+template <bool kAnchoredEnd>
+__device__ __forceinline__ bool stopped(uint32_t e, uint32_t h, int dead) {
+  return (!kAnchoredEnd && (h & 0x100u)) || static_cast<int>(e & 0xffu) == dead;
+}
+
+// A row of len bytes at p (16-byte aligned, its width a multiple of 16) from entry e (h:
+// the accept bits so far), 16 bytes a load: a whole chunk walked with no test, the row's
+// end and the exit (a hit, or the dead state) tested once a chunk.
+template <bool kAnchoredEnd>
+__device__ __forceinline__ void search_row16(const uint16_t* fused, const uint8_t* p, int len,
+                                             int dead, uint32_t& e, uint32_t& h) {
+  int j0 = 0;
+  for (; j0 + 16 <= len && !stopped<kAnchoredEnd>(e, h, dead); j0 += 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p + j0);
+    search_word<kAnchoredEnd>(fused, v.x, e, h);
+    search_word<kAnchoredEnd>(fused, v.y, e, h);
+    search_word<kAnchoredEnd>(fused, v.z, e, h);
+    search_word<kAnchoredEnd>(fused, v.w, e, h);
+  }
+  if (j0 < len && !stopped<kAnchoredEnd>(e, h, dead)) {  // the row's last bytes
+    const uint4 v = *reinterpret_cast<const uint4*>(p + j0);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    const int n = len - j0;
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      if (k < n) search_step<kAnchoredEnd>(fused, w[k >> 2], k & 3, e, h);
+  }
+}
+
+// a row that is not 16-byte aligned (or whose width is not a multiple of 16): byte loads,
+// the exit tested every 16 bytes
+template <bool kAnchoredEnd>
+__device__ __forceinline__ void search_bytes(const uint16_t* fused, const uint8_t* p, int len,
+                                             int dead, uint32_t& e, uint32_t& h) {
+  for (int j0 = 0; j0 < len && !stopped<kAnchoredEnd>(e, h, dead); j0 += 16) {
+    const int n = len - j0 < 16 ? len - j0 : 16;
+    for (int k = 0; k < n; ++k) search_step<kAnchoredEnd>(fused, p[j0 + k], 0, e, h);
+  }
+}
+
+template <bool kAnchoredEnd>
+__device__ __forceinline__ uint8_t search_hit(uint32_t e, uint32_t h) {
+  return ((kAnchoredEnd ? e : h) >> 8) & 1u;
+}
+
+// copy the fused table (states * 512 bytes, 16-byte aligned) into shared memory
+__device__ __forceinline__ const uint16_t* stage_fused(uint8_t* smem, const uint16_t* fused,
+                                                       int states) {
+  const uint4* src = reinterpret_cast<const uint4*>(fused);
+  uint4* dst = reinterpret_cast<uint4*>(smem);
+  for (int i = threadIdx.x; i < states * 32; i += blockDim.x) dst[i] = src[i];
+  __syncthreads();
+  return reinterpret_cast<const uint16_t*>(smem);
+}
+
+template <bool kAnchoredEnd>
+__global__ void __launch_bounds__(kSearchThreads)
+dfa_search_kernel(const uint8_t* __restrict__ chars, long long width,
+                  const int32_t* __restrict__ lens, const uint16_t* __restrict__ fused_g,
+                  const uint8_t* __restrict__ accept, int states, int start, int dead,
+                  uint8_t* __restrict__ hit, long long rows) {
+  extern __shared__ __align__(16) uint8_t search_smem[];
+  const uint16_t* fused = stage_fused(search_smem, fused_g, states);
+  const uint32_t e0 = static_cast<uint32_t>(start) | (accept[start] ? 0x100u : 0u);
+  const long long stride = static_cast<long long>(gridDim.x) * kSearchThreads;
+  const bool vec16 = (width & 15) == 0 && (reinterpret_cast<uintptr_t>(chars) & 15) == 0;
+  for (long long r = static_cast<long long>(blockIdx.x) * kSearchThreads + threadIdx.x;
+       r < rows; r += stride) {
+    const int len = lens[r] < 0 ? 0 : (lens[r] > width ? static_cast<int>(width) : lens[r]);
+    uint32_t e = e0, h = e0;
+    if (vec16)
+      search_row16<kAnchoredEnd>(fused, chars + r * width, len, dead, e, h);
+    else
+      search_bytes<kAnchoredEnd>(fused, chars + r * width, len, dead, e, h);
+    hit[r] = search_hit<kAnchoredEnd>(e, h);
   }
 }
 
@@ -387,31 +456,69 @@ cudaError_t spans_grid(int smem, int& blocks) {
   return cudaSuccess;
 }
 
+// The search kernels' grid for a table of `states` (its shared memory), as many blocks as
+// the SMs hold at once; their attributes and the SM count set and read once per device,
+// the occupancy once per device and table size, under launch_mutex
+std::map<int, int> search_sms;                       // device -> SMs, attributes set
+std::map<std::pair<int, int>, int> search_grids;     // (device, states) -> blocks
+
+cudaError_t search_grid(int states, int& blocks) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(launch_mutex);
+  const auto it = search_grids.find({dev, states});
+  if (it != search_grids.end()) {
+    blocks = it->second;
+    return cudaSuccess;
+  }
+  auto sms = search_sms.find(dev);
+  if (sms == search_sms.end()) {
+    int n = 0;
+    e = cudaFuncSetAttribute(dfa_search_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(dfa_search_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    sms = search_sms.emplace(dev, n).first;
+  }
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dfa_search_kernel<false>,
+                                                    kSearchThreads, states * 512);
+  if (e != cudaSuccess) return e;
+  blocks = sms->second * per_sm > 0 ? sms->second * per_sm : 1;
+  search_grids[{dev, states}] = blocks;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
-// chars: u8[rows, width]; lens: i32[rows]; table: u8[states, classes]; cls: u8[256];
-// accept: u8[states]; dead: the dead state or -1.  hit: u8[rows].  Launches on `stream`;
-// returns the CUDA error code (0 = ok).
-int dfa_search(const void* chars, long long width, const void* lens, const void* table,
-               const void* cls, const void* accept, int states, int classes, int start,
-               int dead, int anchored_end, void* hit, long long rows, void* stream) {
-  if (rows < 0 || width < 0 || states < 1 || states > 256 || classes < 1 || classes > 256)
+// chars: u8[rows, width]; lens: i32[rows]; fused: u16[states, 256] (16-byte aligned),
+// fused[s, b] = next | accept[next] << 8 for next = table[s, cls[b]]; accept: u8[states];
+// dead: the dead state or -1.  hit: u8[rows].  Launches on `stream`; returns the CUDA
+// error code (0 = ok).
+int dfa_search(const void* chars, long long width, const void* lens, const void* fused,
+               const void* accept, int states, int start, int dead, int anchored_end, void* hit,
+               long long rows, void* stream) {
+  if (rows < 0 || width < 0 || states < 1 || states > 256 || start < 0 || start >= states)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(fused) & 15) return static_cast<int>(cudaErrorMisalignedAddress);
   if (rows == 0) return 0;
-  const int smem = smem_bytes(states, classes);
-  cudaError_t e = cudaFuncSetAttribute(dfa_search_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int grid = 0;
+  const cudaError_t e = search_grid(states, grid);
   if (e != cudaSuccess) return static_cast<int>(e);
-  long long blocks = (rows + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  dfa_search_kernel<<<static_cast<int>(blocks), kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
+  long long blocks = (rows + kSearchThreads - 1) / kSearchThreads;
+  if (blocks > grid) blocks = grid;
+  const auto kernel = anchored_end ? dfa_search_kernel<true> : dfa_search_kernel<false>;
+  kernel<<<static_cast<int>(blocks), kSearchThreads, states * 512,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(chars), width, static_cast<const int32_t*>(lens),
-      static_cast<const uint8_t*>(table), static_cast<const uint8_t*>(cls),
-      static_cast<const uint8_t*>(accept), states, classes, start, dead, anchored_end,
-      static_cast<uint8_t*>(hit), rows);
+      static_cast<const uint16_t*>(fused), static_cast<const uint8_t*>(accept), states, start,
+      dead, static_cast<uint8_t*>(hit), rows);
   return static_cast<int>(cudaGetLastError());
 }
 

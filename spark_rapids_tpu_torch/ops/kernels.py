@@ -127,7 +127,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         return
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "md5":
-        lib.md5_rows.argtypes = [vp, ll, vp, vp, ll, vp]
+        lib.md5_rows.argtypes = [vp, ll, vp, vp, vp, ll, vp]
         lib.md5_rows.restype = i
         return
     if name == "dtoa":
@@ -136,8 +136,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.dtoa_shortest.restype = i
         return
     if name == "regex_dfa":
-        lib.dfa_search.argtypes = [vp, ll, vp, vp, vp, vp, i, i, i, i, i, vp,
-                                   ll, vp]
+        lib.dfa_search.argtypes = [vp, ll, vp, vp, vp, i, i, i, i, vp, ll,
+                                   vp]
         lib.dfa_search.restype = i
         lib.dfa_match_spans.argtypes = [vp, ll, vp, vp, vp, vp, i, i, i, i, i,
                                         i, vp, vp, ll, vp]
@@ -496,11 +496,13 @@ _MD5_S = [7, 12, 17, 22] * 4 + [5, 9, 14, 20] * 4 + [4, 11, 16, 23] * 4 + \
 _HEX = b"0123456789abcdef"
 
 
-def md5_plain(chars: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+def md5_plain(chars: torch.Tensor, lens: torch.Tensor,
+              valid: torch.Tensor | None = None) -> torch.Tensor:
     """uint8[rows, 32]: the lower-case hex MD5 (RFC 1321) of each row's
     bytes, in uint32 words held in int64 and masked to 32 bits, over the
     blocks of the widest row (a shorter row keeps its state past its last
-    block)."""
+    block); 32 zero bytes for a row that ``valid`` (bool[rows]) marks not
+    valid."""
     rows, width = chars.shape
     dev = chars.device
     n = lens.to(torch.int64).clamp(0, width)
@@ -539,17 +541,27 @@ def md5_plain(chars: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     digest = torch.stack([(h >> (8 * k)) & 0xFF for h in state
                           for k in range(4)], dim=1)
     hexd = torch.tensor(list(_HEX), dtype=torch.uint8, device=dev)
-    return torch.stack([hexd[digest >> 4], hexd[digest & 15]],
-                       dim=2).reshape(rows, 32)
+    out = torch.stack([hexd[digest >> 4], hexd[digest & 15]],
+                      dim=2).reshape(rows, 32)
+    return out if valid is None else torch.where(valid[:, None], out, 0)
 
 
-def md5(chars: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
-    """The hex MD5 of each row of a string matrix (see ``csrc/md5.cu``).
-    CPU tensors take :func:`md5_plain`."""
+def md5(chars: torch.Tensor, lens: torch.Tensor,
+        valid: torch.Tensor | None = None) -> torch.Tensor:
+    """The hex MD5 of each row of a string matrix (see ``csrc/md5.cu``);
+    a row that ``valid`` (bool[rows], default all) marks not valid is not
+    hashed and gives 32 zero bytes.  CPU tensors take :func:`md5_plain`."""
     _string_inputs("md5", chars, lens)
+    if valid is not None and (valid.dtype != torch.bool
+                              or valid.shape != lens.shape
+                              or valid.device != lens.device):
+        raise TypeError(f"md5: valid must be bool{list(lens.shape)} on "
+                        f"{lens.device}, got {valid.dtype}"
+                        f"{list(valid.shape)} on {valid.device}")
     if chars.device.type == "cpu":
-        return md5_plain(chars, lens)
+        return md5_plain(chars, lens, valid)
     chars, lens = chars.contiguous(), lens.contiguous()
+    valid = None if valid is None else valid.contiguous()
     rows, width = chars.shape
     # a fresh allocation: 16-byte aligned, as md5_rows requires
     out = torch.empty(rows, 32, dtype=torch.uint8, device=chars.device)
@@ -558,6 +570,7 @@ def md5(chars: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     lib = _lib("md5")
     with torch.cuda.device(chars.device):
         err = lib.md5_rows(chars.data_ptr(), width, lens.data_ptr(),
+                           None if valid is None else valid.data_ptr(),
                            out.data_ptr(), rows, _stream(chars.device))
     _launch_check("md5", err)
     LAUNCHES["md5"] += 1
@@ -880,11 +893,21 @@ def dtoa_shortest(values: torch.Tensor):
 # dfa_match_spans :659)
 # --------------------------------------------------------------------------
 
+def dfa_fused(table: torch.Tensor, cls: torch.Tensor,
+              accept: torch.Tensor) -> torch.Tensor:
+    """The search kernel's table, int16 [states, 256] (uint16 bits): for
+    each state and byte, the next state ``table[state, cls[byte]]`` and its
+    accept flag, ``next | accept[next] << 8``."""
+    nxt = table.long()[:, cls.long()]
+    return (nxt | (accept.long()[nxt] << 8)).to(torch.int16).contiguous()
+
+
 def dfa_tables(rx, device) -> dict:
     """A compiled regex (``ops/regex_engine.CompiledRegex``) as the kernels
     take it on ``device``: the next-state table uint8 [states, classes], the
-    byte classes uint8 [256], the accept flags uint8 [states], and its start
-    and dead states and anchors.  Built once per regex and device."""
+    byte classes uint8 [256], the accept flags uint8 [states], the search
+    kernel's fused table (:func:`dfa_fused`), and its start and dead states
+    and anchors.  Built once per regex and device."""
     cache = rx.__dict__.setdefault("_device_tables", {})
     key = str(torch.device(device))
     got = cache.get(key)
@@ -894,10 +917,12 @@ def dfa_tables(rx, device) -> dict:
         if states > 256 or int(rx.byte_class.max()) >= 256:
             raise ValueError(f"a DFA of {states} states and "
                              f"{classes} classes does not fit uint8 entries")
+        table = torch.from_numpy(rx.table.astype(np.uint8)).to(device)
+        cls = torch.from_numpy(rx.byte_class.astype(np.uint8)).to(device)
+        accept = torch.from_numpy(rx.accept.astype(np.uint8)).to(device)
         got = dict(
-            table=torch.from_numpy(rx.table.astype(np.uint8)).to(device),
-            cls=torch.from_numpy(rx.byte_class.astype(np.uint8)).to(device),
-            accept=torch.from_numpy(rx.accept.astype(np.uint8)).to(device),
+            table=table, cls=cls, accept=accept,
+            fused=dfa_fused(table, cls, accept),
             states=states, classes=classes, start=int(rx.start),
             dead=int(rx.dead), anchored_start=bool(rx.anchored_start),
             anchored_end=bool(rx.anchored_end))
@@ -970,35 +995,30 @@ def dfa_match_spans_plain(dfa: dict, chars: torch.Tensor,
     return torch.stack(chosen, 1), torch.stack(out, 1).to(torch.int32)
 
 
-def _dfa_launch(fn: str, dfa: dict, chars: torch.Tensor, lens: torch.Tensor,
-                outs: list) -> None:
-    chars, lens = chars.contiguous(), lens.contiguous()
-    rows, width = chars.shape
-    lib = _lib("regex_dfa")
-    anchors = ([int(dfa["anchored_start"])] if fn == "dfa_match_spans"
-               else []) + [int(dfa["anchored_end"])]
-    with torch.cuda.device(chars.device):
-        err = getattr(lib, fn)(
-            chars.data_ptr(), width, lens.data_ptr(), dfa["table"].data_ptr(),
-            dfa["cls"].data_ptr(), dfa["accept"].data_ptr(), dfa["states"],
-            dfa["classes"], dfa["start"], dfa["dead"], *anchors,
-            *[o.data_ptr() for o in outs], rows, _stream(chars.device))
-    _launch_check(fn, err)
-    LAUNCHES[fn] += 1
-
-
 def dfa_search(dfa: dict, chars: torch.Tensor,
                lens: torch.Tensor) -> torch.Tensor:
     """bool per row: the regex matches somewhere in the row (see
     ``csrc/regex_dfa.cu``); ``dfa`` from :func:`dfa_tables` of a pattern
-    compiled with its search prefix.  CPU tensors take
+    compiled with its search prefix (a hand-made ``dfa`` carries its
+    :func:`dfa_fused` table too).  CPU tensors take
     :func:`dfa_search_plain`."""
     _string_inputs("dfa_search", chars, lens)
     if chars.device.type == "cpu":
         return dfa_search_plain(dfa, chars, lens)
-    hit = torch.empty(chars.shape[0], dtype=torch.bool, device=chars.device)
-    if chars.shape[0]:
-        _dfa_launch("dfa_search", dfa, chars, lens, [hit])
+    chars, lens = chars.contiguous(), lens.contiguous()
+    rows, width = chars.shape
+    hit = torch.empty(rows, dtype=torch.bool, device=chars.device)
+    if rows == 0:
+        return hit
+    lib = _lib("regex_dfa")
+    with torch.cuda.device(chars.device):
+        err = lib.dfa_search(
+            chars.data_ptr(), width, lens.data_ptr(), dfa["fused"].data_ptr(),
+            dfa["accept"].data_ptr(), dfa["states"], dfa["start"],
+            dfa["dead"], int(dfa["anchored_end"]), hit.data_ptr(), rows,
+            _stream(chars.device))
+    _launch_check("dfa_search", err)
+    LAUNCHES["dfa_search"] += 1
     return hit
 
 
@@ -1024,6 +1044,17 @@ def dfa_match_spans(dfa: dict, chars: torch.Tensor, lens: torch.Tensor):
                          device=chars.device)
     mlen = torch.empty(rows, width + 1, dtype=torch.int32,
                        device=chars.device)
-    if rows:
-        _dfa_launch("dfa_match_spans", dfa, chars, lens, [chosen, mlen])
+    if rows == 0:
+        return chosen, mlen
+    chars, lens = chars.contiguous(), lens.contiguous()
+    lib = _lib("regex_dfa")
+    with torch.cuda.device(chars.device):
+        err = lib.dfa_match_spans(
+            chars.data_ptr(), width, lens.data_ptr(), dfa["table"].data_ptr(),
+            dfa["cls"].data_ptr(), dfa["accept"].data_ptr(), dfa["states"],
+            dfa["classes"], dfa["start"], dfa["dead"],
+            int(dfa["anchored_start"]), int(dfa["anchored_end"]),
+            chosen.data_ptr(), mlen.data_ptr(), rows, _stream(chars.device))
+    _launch_check("dfa_match_spans", err)
+    LAUNCHES["dfa_match_spans"] += 1
     return chosen, mlen

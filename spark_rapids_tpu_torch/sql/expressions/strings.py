@@ -530,7 +530,7 @@ class Md5(UnaryExpression):
         return T.STRING
 
     def kernel(self, ctx, c):
-        chars = K.md5(c.data, c.lengths)
+        chars = K.md5(c.data, c.lengths, c.validity)
         lens = torch.full_like(c.lengths, 32)
         return _str(chars, torch.where(c.validity, lens, 0), c.validity)
 

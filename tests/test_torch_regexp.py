@@ -141,6 +141,78 @@ def test_walks_equal_the_reference_numpy_backend(pat):
     assert K.LAUNCHES["dfa_search"] == K.LAUNCHES["dfa_match_spans"] == 0
 
 
+def fused_search(fused, start, accept_start, anchored_end, chars, lens):
+    """The search kernel's walk (``csrc/regex_dfa.cu`` ``search_row``) over
+    the fused table in numpy: each byte's entry is ``fused[(state << 8) |
+    byte]`` (``next | accept[next] << 8``), its low byte the next state;
+    the accept bits are OR-ed up, or, anchored at the end, the last entry's
+    is taken (the start's for an empty row)."""
+    fused = (fused.astype(np.int64) & 0xFFFF).ravel()
+    rows, width = chars.shape
+    e0 = start | (int(accept_start) << 8)
+    e = np.full(rows, e0, dtype=np.int64)
+    h = e.copy()
+    for j in range(width):
+        live = j < lens
+        nxt = fused[((e & 0xFF) << 8) | chars[:, j]]
+        e = np.where(live, nxt, e)
+        if not anchored_end:
+            h |= np.where(live, e, 0)
+    return (((e if anchored_end else h) >> 8) & 1).astype(bool)
+
+
+def synthetic_dfa(anchored_end, states=255, classes=200, seed=18):
+    """A random table of ``states`` x ``classes`` whose last state is dead
+    (it goes only to itself and accepts nothing, as the compiler's is), in
+    the JAX module's form: chip_smoke.py's 255-state check table."""
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, states, (states, classes)).astype(np.int32)
+    table[states - 1] = states - 1
+    accept = rng.random(states) < 0.05
+    accept[states - 1] = False
+    return JRX.CompiledRegex(table, rng.integers(0, classes, 256).astype(
+        np.int32), accept, 0, states - 1, False, anchored_end, 0)
+
+
+@pytest.mark.parametrize("pat", PATTERNS + [r"ab$", r"^a.*4$", r"[^a]",
+                                            "255 states", "255 states$"])
+def test_fused_search_walk_equals_the_reference_numpy_backend(pat):
+    """``dfa_fused``'s table walked as the search kernel walks it equals the
+    JAX module's ``dfa_search`` (numpy backend): the patterns, those
+    anchored at their end, and a synthetic table of 255 states and 200
+    classes (128 KB of entries: the kernel's large shared-memory case).
+    The rows: :func:`seeded_rows`, then :data:`STRS` and a few that the
+    other patterns find."""
+    chars, lens = seeded_rows()
+    extra = [t.encode() for t in STRS + ["special requests", "café",
+                                        "xab", "a 4"]]
+    more = np.zeros((len(extra), chars.shape[1]), dtype=np.uint8)
+    for i, t in enumerate(extra):
+        more[i, :len(t)] = np.frombuffer(t, dtype=np.uint8)
+    chars = np.concatenate([chars, more])
+    lens = np.concatenate([lens, [len(t) for t in extra]]).astype(np.int32)
+    if pat.startswith("255 states"):
+        jrx = synthetic_dfa(pat.endswith("$"))
+        rng = np.random.default_rng(7)
+        chars = rng.integers(0, 256, chars.shape).astype(np.uint8)
+        chars[np.arange(chars.shape[1])[None] >= lens[:, None]] = 0
+        tables = {k: torch.from_numpy(v.astype(np.uint8)) for k, v in (
+            ("table", jrx.table), ("cls", jrx.byte_class),
+            ("accept", jrx.accept))}
+        fused = K.dfa_fused(**tables)
+    else:
+        jrx = JRX.compile_regex(pat, search_prefix=True)
+        dfa = K.dfa_tables(RX.compile_regex(pat, search_prefix=True), "cpu")
+        fused = dfa["fused"]
+        assert fused.dtype == torch.int16
+        assert fused.shape == (dfa["states"], 256)
+    got = fused_search(fused.numpy(), jrx.start, jrx.accept[jrx.start],
+                       jrx.anchored_end, chars, lens)
+    want = JRX.dfa_search(np, jrx, chars, lens)
+    np.testing.assert_array_equal(got, want)
+    assert want.any() or pat in (r"^$", "255 states$")
+
+
 SPAN_PATTERNS = [r"[aeiou]+", r"^[0-9]+", r"[0-9]+$", r"x*", r"^$",
                  r"a.c", r" "]
 

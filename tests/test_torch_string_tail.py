@@ -102,6 +102,34 @@ def test_md5_plain_matches_hashlib_at_the_padding_edges():
     assert K.LAUNCHES["md5"] == 0
 
 
+@pytest.mark.parametrize("width", [8, 64, 130])
+def test_md5_plain_with_valid(width):
+    """``valid`` marks the rows to hash: a valid row is hashlib's digest, a
+    row that is not valid 32 zero bytes (its bytes and length aside), and
+    with ``valid`` omitted every row is hashed as before."""
+    rng = np.random.default_rng(width)
+    n = 300
+    lens = rng.integers(0, width + 1, n).astype(np.int32)
+    lens[:4] = [0, width, min(55, width), min(56, width)]
+    chars = rng.integers(0, 256, (n, width), dtype=np.uint8)
+    valid = rng.random(n) < 0.7
+    valid[:2] = [True, False]
+    valid[-37:] = False                     # a dead tail
+    c, ln = torch.from_numpy(chars), torch.from_numpy(lens)
+    got = K.md5_plain(c, ln, torch.from_numpy(valid)).numpy()
+    every = K.md5_plain(c, ln).numpy()
+    for r in range(n):
+        want = hashlib.md5(bytes(chars[r, :lens[r]])).hexdigest()
+        assert bytes(every[r]).decode() == want, (width, lens[r])
+        if valid[r]:
+            assert bytes(got[r]).decode() == want, (width, lens[r])
+        else:
+            assert not got[r].any(), r
+    np.testing.assert_array_equal(
+        K.md5(c, ln, torch.from_numpy(valid)).numpy(), got)
+    assert K.LAUNCHES["md5"] == 0
+
+
 def test_md5_matches_reference(sessions):
     got, want = both(sessions, "SELECT u, md5(s) a, md5(w) b FROM t")
     assert got == want

@@ -851,12 +851,13 @@ def test_top_line_per_order_matches_reference_and_numpy(num_partitions):
 # min and max in groupBy().agg
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("key", ["ki", "kd", "kt"])
-def test_groupby_min_max_match_reference(key):
+@pytest.fixture(scope="module")
+def min_max_table():
+    """The min/max cases' table, built once for the three keys."""
     rng = np.random.default_rng(21)
     n = 3000
     days = rng.integers(0, 2000, n).astype("datetime64[D]")
-    table = pa.table({
+    return pa.table({
         "ki": pa.array(rng.integers(0, 50, n), mask=rng.random(n) < 0.05),
         "kd": pa.array(rng.integers(0, 50, n) / 4.0,
                        mask=rng.random(n) < 0.05),
@@ -867,6 +868,11 @@ def test_groupby_min_max_match_reference(key):
         "l": pa.array(rng.integers(-1 << 40, 1 << 40, n)),
         "x": pa.array(rng.standard_normal(n), mask=rng.random(n) < 0.2),
         "d": pa.array(days, mask=rng.random(n) < 0.2)})
+
+
+@pytest.mark.parametrize("key", ["ki", "kd", "kt"])
+def test_groupby_min_max_match_reference(min_max_table, key):
+    table = min_max_table
 
     def query(df, F, Window):
         return (df.groupBy(key)
